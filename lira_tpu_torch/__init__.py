@@ -1,0 +1,58 @@
+"""lira_tpu_torch — the PyTorch / CUDA (NVIDIA Hopper) port of lira_tpu.
+
+Module paths and public names follow `lira_tpu`, so each piece has an
+obvious counterpart there.  The package imports torch and numpy only:
+never jax, and never a module of `lira_tpu` (the JAX package is the
+reference the port is tested against, not a dependency).
+
+Layer map of this slice (the blocked serving path):
+
+    io/         fvecs/ivecs/bvecs, synthetic corpora (byte-identical to lira_tpu's)
+    ops/        distances, a top-k with lax.top_k's tie rule
+    partition/  K-Means (Lloyd on the card), bucket layout, locality tour
+    labels/     distance-feature standardizer
+    models/     probing MLP as an nn.Module (+ lira_tpu parameter converters)
+    engine/     QueryEngine, the blocked scan, the K1 screen kernel, calibration
+    csrc/       hand-written CUDA kernels, built with nvcc at first use
+
+Entry points run on `cuda` unless the caller passes `device="cpu"`.
+"""
+
+from __future__ import annotations
+
+import contextlib
+
+import torch
+
+__version__ = "0.1.0"
+
+
+def resolve_device(device=None) -> torch.device:
+    """`None` → cuda.  Raises when cuda is asked for and no card is present:
+    the port never falls back to the CPU quietly."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "lira_tpu_torch: no CUDA device is available; pass device='cpu' "
+                "to run on the CPU"
+            )
+    elif dev.type != "cpu":
+        raise ValueError(f"unsupported device {device!r}: expected 'cuda' or 'cpu'")
+    return dev
+
+
+@contextlib.contextmanager
+def true_fp32():
+    """Context (and decorator) for the port's f32 products: TF32 off for
+    matmuls and convolutions inside it, the caller's settings restored on
+    exit.  lira_tpu's f32 paths run at precision="highest" (true fp32), and
+    TF32 keeps ~3 decimal digits, enough to reorder near-ties."""
+    mm, conv = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = mm
+        torch.backends.cudnn.allow_tf32 = conv

@@ -1,0 +1,142 @@
+"""K1, the union group-min screen: wrapper of the CUDA kernel
+(csrc/union_groupmin.cu) and its plain PyTorch version.
+
+Replaces lira_tpu/engine/block_scan.py::_union_groupmin_kernel.  For each
+query block i and union slot u, the 1024 rows of supertile supers[i, u]
+are scored against the block's qb queries and reduced to the min over each
+`sel_rows`-row group:
+
+    L2:   ‖x‖² − 2·x·q, ‖x‖² from the rows as stored (bf16-rounded for bf16)
+    IP:   −x·q
+    int8: −t·(x8·q8) with t = t_eff (the caller doubles it for L2), plus
+          ‖x̂‖² = Σ_d s2_d·x8_d² for L2
+
+Slots with u ≥ ulen[i] are union padding and come out as exactly 3e38.
+Output (rows, U·SG, qb) f32, SG = 1024 / sel_rows — lira_tpu's layout.
+
+`union_groupmin` launches the kernel for CUDA tensors and takes the plain
+version only for CPU tensors; there is no fallback between the two.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from .. import true_fp32
+
+S_TILES = 8  # 128-row tiles per supertile
+SUPER_ROWS = S_TILES * 128
+_BIG = 3e38
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+
+
+@true_fp32()
+def union_groupmin_ref(q, corpus, supers, ulen, *, qb: int, metric: str, sel_rows: int,
+                       t_eff=None, s2=None) -> torch.Tensor:
+    """Plain PyTorch K1 (one block row at a time).  bf16 and int8 inputs are
+    widened to f32 exactly; int8 dots are exact in f32 (|x8·q8| ≤ 127²·d <
+    2²⁴), and so are bf16 products, so only the f32 summation order differs
+    from the kernel."""
+    rows, U = supers.shape
+    d = corpus.shape[1]
+    SG = SUPER_ROWS // sel_rows
+    sup_view = corpus.view(-1, SUPER_ROWS, d)
+    out = torch.empty((rows, U * SG, qb), dtype=torch.float32, device=corpus.device)
+    slot = torch.arange(U, device=corpus.device).repeat_interleave(SG)
+    for i in range(rows):
+        x = sup_view[supers[i].long()].float()  # (U, 1024, d)
+        dot = torch.matmul(x, q[i * qb : (i + 1) * qb].float().T)  # (U, 1024, qb)
+        if corpus.dtype == torch.int8:
+            scores = -t_eff.reshape(()) * dot
+            if metric != "inner_product":
+                scores = ((x * x) @ s2.float())[..., None] + scores
+        elif metric == "inner_product":
+            scores = -dot
+        else:
+            scores = (x * x).sum(dim=-1, keepdim=True) - 2.0 * dot
+        mins = scores.view(U, SG, sel_rows, qb).amin(dim=2).view(U * SG, qb)
+        out[i] = torch.where((slot >= ulen[i])[:, None], _BIG, mins)
+    return out
+
+
+def _check(q, corpus, supers, ulen, qb, metric, sel_rows, t_eff, s2):
+    if corpus.dtype not in _DTYPE_CODE:
+        raise TypeError(f"K1: corpus dtype {corpus.dtype} (expected float32, bfloat16, int8)")
+    if q.dtype != corpus.dtype:
+        raise TypeError(f"K1: query dtype {q.dtype} != corpus dtype {corpus.dtype}")
+    if supers.dtype != torch.int32 or ulen.dtype != torch.int32:
+        raise TypeError("K1: supers and ulen must be int32")
+    if metric not in ("L2", "inner_product"):
+        raise ValueError(f"K1: metric {metric!r}")
+    if sel_rows not in (32, 64, 128):
+        raise ValueError(f"K1: sel_rows={sel_rows} (the kernel takes 32, 64 or 128)")
+    if corpus.dim() != 2 or corpus.shape[0] % SUPER_ROWS:
+        raise ValueError(f"K1: corpus {tuple(corpus.shape)} is not whole supertiles")
+    if supers.dim() != 2:
+        raise ValueError(f"K1: supers {tuple(supers.shape)} must be (rows, U)")
+    rows, U = supers.shape
+    d = corpus.shape[1]
+    if q.shape != (rows * qb, d):
+        raise ValueError(f"K1: queries {tuple(q.shape)} != ({rows}·{qb}, {d})")
+    if ulen.shape != (rows,):
+        raise ValueError(f"K1: ulen {tuple(ulen.shape)} != ({rows},)")
+    if corpus.dtype == torch.int8:
+        if t_eff is None or t_eff.numel() != 1 or t_eff.dtype != torch.float32:
+            raise ValueError("K1 int8: t_eff must be one float32")
+        if s2 is None or s2.shape != (d,) or s2.dtype != torch.float32:
+            raise ValueError(f"K1 int8: s2 must be ({d},) float32")
+        if d % 4:
+            raise ValueError(f"K1 int8: d={d} must be a multiple of 4")
+    return rows, U, d
+
+
+def _kernel():
+    """The C entry point of csrc/union_groupmin.cu (built at first use)."""
+    from ..kernels import load
+
+    fn = load("union_groupmin").lira_union_groupmin
+    fn.restype = ctypes.c_int
+    # dtype, l2 | q, corpus, supers, ulen, t_eff, s2, out | rows, U, qb, d,
+    # sel_rows, device | stream
+    fn.argtypes = [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 7 + [
+        ctypes.c_int] * 6 + [ctypes.c_void_p]
+    return fn
+
+
+def union_groupmin(q, corpus, supers, ulen, *, qb: int, metric: str, sel_rows: int,
+                   t_eff=None, s2=None) -> torch.Tensor:
+    """K1 on (rows·qb, d) queries `q` of block rows [0, rows) against the
+    supertiles `supers` (rows, U) int32 of `corpus` (n_super·1024, d), both
+    in the screen dtype.  Returns (rows, U·SG, qb) f32 group minima."""
+    rows, U, d = _check(q, corpus, supers, ulen, qb, metric, sel_rows, t_eff, s2)
+    tensors = [q, corpus, supers, ulen] + (
+        [t_eff, s2] if corpus.dtype == torch.int8 else [])
+    devs = {t.device for t in tensors}
+    if devs == {torch.device("cpu")}:
+        return union_groupmin_ref(q, corpus, supers, ulen, qb=qb, metric=metric,
+                                  sel_rows=sel_rows, t_eff=t_eff, s2=s2)
+    if len(devs) != 1 or next(iter(devs)).type != "cuda":
+        raise ValueError(f"K1: inputs must all be on one CUDA device (got {devs})")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("K1: inputs must be contiguous")
+    fn = _kernel()
+    dev = corpus.device
+    SG = SUPER_ROWS // sel_rows
+    out = torch.empty((rows, U * SG, qb), dtype=torch.float32, device=dev)
+    int8 = corpus.dtype == torch.int8
+    err = fn(
+        _DTYPE_CODE[corpus.dtype], int(metric != "inner_product"),
+        q.data_ptr(), corpus.data_ptr(), supers.data_ptr(), ulen.data_ptr(),
+        t_eff.data_ptr() if int8 else None, s2.data_ptr() if int8 else None,
+        out.data_ptr(), rows, U, qb, d, sel_rows, dev.index or 0,
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"K1 launch failed: cudaError {err}")
+    union_groupmin.launches += 1
+    return out
+
+
+union_groupmin.launches = 0  # kernel launches since the last reset

@@ -1,0 +1,16 @@
+from .xvecs import read_xvecs, write_xvecs
+from .datasets import (
+    HARD_REGIME, DatasetBundle, hard_regime_sig, load_data, synthetic_dataset,
+    write_dataset,
+)
+
+__all__ = [
+    "read_xvecs",
+    "write_xvecs",
+    "HARD_REGIME",
+    "DatasetBundle",
+    "hard_regime_sig",
+    "load_data",
+    "synthetic_dataset",
+    "write_dataset",
+]

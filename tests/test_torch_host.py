@@ -1,0 +1,178 @@
+"""lira_tpu_torch's host layer, ops, K-Means, scaler and probing MLP against
+lira_tpu on the same numpy inputs (device="cpu").
+
+Exact: corpora (byte-identical), xvecs files, bucket layouts, the tour
+rank, the top-k tie rule, and K-Means assignments.  allclose (f32 sums in
+another order): distances rtol 1e-5, centroids rtol 1e-4, scaler moments
+rtol 1e-5, MLP outputs atol 1e-6.
+"""
+
+import os
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from lira_tpu.io import datasets as jds
+from lira_tpu.io.xvecs import read_xvecs
+from lira_tpu.labels.scaler import scaled_centroid_distances as j_scaled
+from lira_tpu.models.probing_mlp import forward as j_forward
+from lira_tpu.models.probing_mlp import init_params
+from lira_tpu.ops import distance as jdist
+from lira_tpu.partition import assign as jassign
+from lira_tpu.partition import kmeans as jkm
+from lira_tpu.partition.order import centroid_tour_rank as j_rank
+from lira_tpu_torch import resolve_device, true_fp32
+from lira_tpu_torch.io import datasets as tds
+from lira_tpu_torch.labels.scaler import scaled_centroid_distances as t_scaled
+from lira_tpu_torch.models.probing_mlp import ProbingMLP, params_from_jax, params_to_jax
+from lira_tpu_torch.ops import distance as tdist
+from lira_tpu_torch.ops.topk import top_k
+from lira_tpu_torch.partition import assign as tassign
+from lira_tpu_torch.partition import kmeans as tkm
+from lira_tpu_torch.partition.order import centroid_tour_rank as t_rank
+
+
+@pytest.mark.parametrize("hard", [False, True])
+def test_synthetic_dataset_byte_identical(hard):
+    kw = dict(n_base=2000, n_query=50, dim=32, k_gt=20)
+    if hard:
+        kw.update(jds.HARD_REGIME)
+    a, b = jds.synthetic_dataset(**kw), tds.synthetic_dataset(**kw)
+    assert a.base.tobytes() == b.base.tobytes()
+    assert a.query.tobytes() == b.query.tobytes()
+    np.testing.assert_array_equal(a.groundtruth, b.groundtruth)
+    assert tds.HARD_REGIME == jds.HARD_REGIME
+    assert tds.hard_regime_sig() == jds.hard_regime_sig()
+
+
+def test_dataset_files_round_trip(tmp_path, tiny_dataset):
+    d = tds.write_dataset(tds.DatasetBundle("toy", tiny_dataset.base, tiny_dataset.query,
+                                            tiny_dataset.groundtruth), str(tmp_path))
+    b = jds.load_data("toy", str(tmp_path))
+    np.testing.assert_array_equal(b.base, tiny_dataset.base)
+    np.testing.assert_array_equal(read_xvecs(os.path.join(d, "toy_groundtruth.ivecs")),
+                                  tiny_dataset.groundtruth)
+    t = tds.load_data("toy", str(tmp_path))
+    np.testing.assert_array_equal(t.query, tiny_dataset.query)
+
+
+def test_bucket_layout_and_tour_rank_identical():
+    rng = np.random.default_rng(3)
+    d2b = rng.integers(-1, 9, size=(500, 2)).astype(np.int32)
+    a = jassign.build_bucket_layout(d2b, 9, tile=128, use_native=False)
+    b = tassign.build_bucket_layout(d2b, 9, tile=128)
+    for f in ("offsets", "ids", "padded_offsets", "padded_ids"):
+        np.testing.assert_array_equal(getattr(a, f), getattr(b, f), err_msg=f)
+    c = rng.normal(size=(40, 8)).astype(np.float32)
+    np.testing.assert_array_equal(j_rank(c), t_rank(c))
+
+
+def test_distances_match():
+    rng = np.random.default_rng(4)
+    q = rng.normal(size=(20, 16)).astype(np.float32)
+    c = rng.normal(size=(11, 16)).astype(np.float32)
+    for metric in ("L2", "inner_product"):
+        np.testing.assert_allclose(
+            tdist.pairwise_scores(torch.from_numpy(q), torch.from_numpy(c), metric).numpy(),
+            np.asarray(jdist.pairwise_scores(jnp.asarray(q), jnp.asarray(c), metric)),
+            rtol=1e-5, atol=1e-5,
+        )
+    np.testing.assert_allclose(
+        tdist.l2_to_centroids(torch.from_numpy(q), torch.from_numpy(c)).numpy(),
+        np.asarray(jdist.l2_to_centroids(jnp.asarray(q), jnp.asarray(c))),
+        rtol=1e-5, atol=1e-5,
+    )
+    np.testing.assert_array_equal(tdist.row_sqnorms(q), jdist.row_sqnorms(q))
+
+
+def test_top_k_follows_lax_tie_rule():
+    rng = np.random.default_rng(5)
+    x = rng.integers(-3, 4, size=(64, 50)).astype(np.float32)  # many ties
+    x[:, 7] = -np.inf
+    x[3] = 1.0  # a row of one value
+    for k in (1, 5, 50):
+        v_j, i_j = jax.lax.top_k(jnp.asarray(x), k)
+        v_t, i_t = top_k(torch.from_numpy(x), k)
+        np.testing.assert_array_equal(i_t.numpy(), np.asarray(i_j))
+        np.testing.assert_array_equal(v_t.numpy(), np.asarray(v_j))
+
+
+@pytest.mark.parametrize("init", ["random", "kmeans++"])
+def test_kmeans_matches(tiny_dataset, init):
+    x = tiny_dataset.base
+    a = jkm.kmeans_fit(x, 8, niter=5, seed=43, init=init, max_points_per_centroid=64,
+                       chunk_rows=300)
+    b = tkm.kmeans_fit(x, 8, niter=5, seed=43, init=init, max_points_per_centroid=64,
+                       chunk_rows=300, device="cpu")
+    np.testing.assert_allclose(b.centroids, a.centroids, rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(b.objective, a.objective, rtol=1e-4)
+    np.testing.assert_array_equal(tkm.kmeans_assign(x, a.centroids, device="cpu"),
+                                  jkm.kmeans_assign(x, a.centroids))
+
+
+def test_scaled_centroid_distances_match(tiny_dataset):
+    x, q = tiny_dataset.base, tiny_dataset.query
+    c = x[:9] + np.float32(0.5)  # no centroid sits on a data point (sqrt(0) cancellation)
+    dist_j, dq_j, sc_j = j_scaled(x, q, c, chunk_rows=512)
+    dist_t, dq_t, sc_t = t_scaled(x, q, c, chunk_rows=512, device="cpu")
+    np.testing.assert_allclose(sc_t.mean_, sc_j.mean_, rtol=1e-5)
+    np.testing.assert_allclose(sc_t.scale_, sc_j.scale_, rtol=1e-5)
+    np.testing.assert_allclose(dist_t.numpy(), np.asarray(dist_j), atol=1e-4)
+    np.testing.assert_allclose(dq_t, dq_j, atol=1e-4)
+
+
+def test_probing_mlp_carries_weights_across():
+    n_bkt, dim = 12, 16
+    params = jax.tree_util.tree_map(np.asarray, init_params(jax.random.PRNGKey(1), n_bkt, dim))
+    model = params_from_jax(params)
+    back = params_to_jax(model)
+    for layer in params:
+        for leaf in ("w", "b"):
+            np.testing.assert_array_equal(back[layer][leaf], params[layer][leaf])
+    rng = np.random.default_rng(6)
+    xd = rng.normal(size=(10, n_bkt)).astype(np.float32)
+    xv = rng.normal(size=(10, dim)).astype(np.float32)
+    with torch.no_grad():
+        got = model(torch.from_numpy(xd), torch.from_numpy(xv)).numpy()
+    np.testing.assert_allclose(got, np.asarray(j_forward(params, xd, xv)), atol=1e-6)
+
+
+def test_probing_mlp_init_is_seeded_and_bounded():
+    a = ProbingMLP(12, 16, generator=torch.Generator().manual_seed(0))
+    b = ProbingMLP(12, 16, generator=torch.Generator().manual_seed(0))
+    for (name, p), (_, q) in zip(a.named_parameters(), b.named_parameters()):
+        assert torch.equal(p, q), name
+    assert float(a.dist1.weight.detach().abs().max()) <= 1 / np.sqrt(12)
+    assert float(a.head2.bias.detach().abs().max()) <= 1 / np.sqrt(128)
+
+
+def test_resolve_device():
+    assert resolve_device("cpu").type == "cpu"
+    with pytest.raises(ValueError):
+        resolve_device("meta")
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            resolve_device(None)
+
+
+def test_true_fp32_turns_tf32_off_and_restores():
+    """The port's f32 products run in true fp32 (lira_tpu: precision=
+    "highest"), and the caller's TF32 policy survives every call."""
+    mm, conv = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = True
+        torch.backends.cudnn.allow_tf32 = True
+        with true_fp32():
+            assert not torch.backends.cuda.matmul.allow_tf32
+            assert not torch.backends.cudnn.allow_tf32
+        inside = true_fp32()(lambda: torch.backends.cuda.matmul.allow_tf32)
+        assert inside() is False
+        resolve_device("cpu")
+        tdist.pairwise_scores(torch.ones(2, 4), torch.ones(3, 4))
+        assert torch.backends.cuda.matmul.allow_tf32 and torch.backends.cudnn.allow_tf32
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = mm
+        torch.backends.cudnn.allow_tf32 = conv
