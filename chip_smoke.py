@@ -1,33 +1,49 @@
 """Smoke run of lira_tpu_torch on one NVIDIA H100: builds every CUDA kernel
-of the serving path from csrc/, holds each against its plain PyTorch
-version, drives the blocked serving path at full size, and checks its
-answers.
+of the ported paths from csrc/, holds each against its plain PyTorch
+version, trains the probing model at full size, serves with it, runs the
+small-scale pipeline, and checks the answers.
 
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero; nothing is caught and passed over):
   1. the device: name, count, `nvidia-smi` name and power limit;
-  2. the kernel build (nvcc, sm_90a) and what `-Xptxas -v` reports;
+  2. the kernel build (nvcc, sm_90a, one process per source, in parallel)
+     and what `-Xptxas -v` reports;
   3. K1 against its plain version on the card: every dtype × metric ×
      sel_rows at qb=1024, d=128, U=64 with a partly dead union, timed;
-  4. the main path: a 1M×128 hard-regime corpus, K-Means to 1024 buckets,
-     a seeded untrained probing MLP, and QueryEngine(scan_impl="blocked",
+  4. K2 against its plain version on the card: f32, bf16-rounded and int8
+     × L2 and IP at Q=8192, d=128 over 64 groups, one partly padded, timed;
+  5. the trained index at full size (bench.py's recipe): a 1M×128
+     hard-regime corpus, K-Means to 1024 buckets, the self-kNN (k=10)
+     through the fused path and K2 in f32 (123 launches, checked exact on
+     1024 sampled rows against a brute-force top-k on the card), kNN
+     labels, scaled distances, and 6 epochs of training at batch 256;
+     K2 at the main path's shape against its plain version;
+  6. serving with the trained MLP: QueryEngine(scan_impl="blocked",
      probe_cap=128, block_q=1024) in int8, bfloat16 and float32 — margin
      calibration, one 65536-query `search`, a 4-batch `search_stream`;
-     recall@10 against exact ground truth (4096 queries, f32 on the card),
-     exact neighbour sets on 64 sampled queries against a numpy oracle over
-     the probed buckets, and stream == per-batch search;
-     and a torch.profiler breakdown of one warm `search` per dtype;
-  5. a `{"kernels": [...]}` line (K1 at the main path's shapes: time, plain
-     time, bound, library yardstick, launches in the main path's run).
+     recall@10 against exact ground truth (4096 queries, the port's
+     `exact_knn` on the card) beside the TPU record, exact neighbour sets on
+     64 sampled queries against a numpy oracle over the probed buckets,
+     stream == per-batch search, a torch.profiler breakdown of one warm
+     `search`, and K1 at the main path's inputs against its plain version;
+  7. `run_smallscale` on the card: 200k×128, 2000 queries with exact
+     ground truth, 256 buckets, k=10, 3 epochs, model redundancy, the
+     serving sweep;
+  8. a `{"kernels": [...]}` line (K1 ×3 dtypes and K2 at the main path's
+     shapes: time, plain time, bound, library yardstick, launches in the
+     main path's run).
 The last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import copy
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -39,6 +55,11 @@ PEAK_OPS = {torch.float32: 67e12, torch.bfloat16: 989e12, torch.int8: 1979e12}
 PEAK_BYTES = 3.35e12
 K1_SOURCE = "lira_tpu_torch/csrc/union_groupmin.cu"
 K1_REPLACES = "lira_tpu/engine/block_scan.py:145"
+K2_SOURCE = "lira_tpu_torch/csrc/groupmin.cu"
+K2_REPLACES = "lira_tpu/ops/knn_pallas.py:39"
+# the TPU record (BENCH_r05.json; only its hardware-independent columns)
+TPU_RECALL, TPU_NDIS = 0.8370, 7755
+MIN_INT8_RECALL = 0.75  # the trained MLP's floor at the bench's operating point
 DTYPE_NAME = {torch.float32: "float32", torch.bfloat16: "bfloat16", torch.int8: "int8"}
 EPS32 = float(np.finfo(np.float32).eps)
 
@@ -153,8 +174,8 @@ def phase_k1_grid(dev) -> None:
                     raise AssertionError(f"K1 {dtype} {metric} {sel_rows}: {err} > {tol}")
 
 
-def profile_search(eng, x_q, thr, k, tag) -> None:
-    """Where one warm `search` spends the card's time: torch.profiler's
+def profile_device(fn, tag) -> None:
+    """Where one warm call of `fn` spends the card's time: torch.profiler's
     device events, summed by kernel name, and the device-busy share of the
     wall time (the union of kernel intervals over the host clock; both
     include the profiler's own overhead).  Reports only; prints "not
@@ -163,10 +184,14 @@ def profile_search(eng, x_q, thr, k, tag) -> None:
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        eng.search(x_q, thr, k)
+        fn()
+        torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    # device kernels only: user annotations (e.g. "Optimizer.step#Adam.step")
+    # are mirrored onto the device timeline but are no device work
     evs = [e for e in prof.events()
-           if e.device_type == torch.autograd.DeviceType.CUDA and e.time_range.end > 0]
+           if e.device_type == torch.autograd.DeviceType.CUDA and e.time_range.end > 0
+           and not getattr(e, "is_user_annotation", False)]
     if not evs:
         log(f"profile[{tag}]: no device events recorded; breakdown not measured")
         return
@@ -184,14 +209,238 @@ def profile_search(eng, x_q, thr, k, tag) -> None:
         log(f"profile[{tag}]:   {us / 1e3:8.2f} ms  {name[:90]}")
 
 
-def exact_gt(x_d_dev, q_dev, k):
-    """Exact L2 top-k ids on the card in f32 (TF32 off)."""
-    xsq = (x_d_dev * x_d_dev).sum(1)
-    out = []
-    for s in range(0, len(q_dev), 512):
-        sc = xsq[None, :] - 2.0 * (q_dev[s : s + 512] @ x_d_dev.T)
-        out.append(torch.topk(sc, k, dim=1, largest=False).indices)
-    return torch.cat(out).cpu().numpy()
+def k2_measure(q, base, bsq, *, metric, precision="highest", t_eff=None, reps=5,
+               library_chunk=131072):
+    """K2 vs its plain version on one input: the kernel's output, the plain
+    one's, and the timing/bound record.  library_ms: the same (Q, d)×(d,
+    n_pad) product alone (no norms, no group min) — torch.matmul in f32
+    (bf16 for "default", whose inputs the kernel rounds to bf16),
+    torch._int_mm for int8 — in corpus chunks whose output fits, each
+    timed, summed."""
+    from lira_tpu_torch.ops.groupmin import groupmin, groupmin_ref
+
+    kw = dict(metric=metric, precision=precision, t_eff=t_eff)
+    out = groupmin(q, base, bsq, **kw)
+    ref = groupmin_ref(q, base, bsq, **kw)
+    torch.cuda.synchronize()
+    ms = time_ms(lambda: groupmin(q, base, bsq, **kw), reps)
+    plain_ms = time_ms(lambda: groupmin_ref(q, base, bsq, **kw), 2)
+
+    Q, d = q.shape
+    n_pad = base.shape[0]
+    peak = PEAK_OPS[torch.int8 if base.dtype == torch.int8 else
+                    torch.bfloat16 if precision == "default" else torch.float32]
+    ops = 2.0 * Q * n_pad * d
+    nbytes = (q.numel() * q.element_size() + base.numel() * base.element_size()
+              + bsq.numel() * 4 + out.numel() * 4)
+    t_ops, t_bytes = ops / peak, nbytes / PEAK_BYTES
+    if base.dtype == torch.int8:
+        mm, qq, xx = torch._int_mm, q, base
+    elif precision == "default":
+        mm, qq, xx = torch.matmul, q.to(torch.bfloat16), base.to(torch.bfloat16)
+    else:
+        mm, qq, xx = torch.matmul, q, base
+    library_ms = 0.0
+    for c in range(0, n_pad, library_chunk):
+        xc = xx[c : c + library_chunk]
+        library_ms += time_ms(lambda x=xc: mm(qq, x.T), reps)
+    rec = dict(ms=ms, plain_ms=plain_ms, bound_ms=1e3 * max(t_ops, t_bytes),
+               bound_by="operations" if t_ops >= t_bytes else "bytes",
+               library_ms=library_ms)
+    return out, ref, rec
+
+
+def k2_tolerance(q, base) -> float:
+    """Bound on |kernel − plain| for f32 and bf16-rounded inputs: the same
+    exact products summed in another f32 order, 2·d·eps·(max‖x‖² +
+    2·max‖x‖·max‖q‖).  int8: 0 — both round the exact integer dot to f32
+    and apply the same two f32 operations."""
+    if base.dtype == torch.int8:
+        return 0.0
+    d = base.shape[1]
+    xn = float((base * base).sum(1).max())
+    qn = float((q * q).sum(1).max())
+    return 2.0 * d * EPS32 * (xn + 2.0 * (xn * qn) ** 0.5)
+
+
+def phase_k2_grid(dev) -> None:
+    """Every mode × metric at the main path's Q and d over 64 groups, the
+    last one partly padded (pad rows zero, bsq 1e30)."""
+    from lira_tpu_torch.ops.knn_pallas import _pad_and_norms, _quantize_corpus
+
+    Q, d, n = 8192, 128, 64 * 128 - 50
+    g = torch.Generator(device="cpu").manual_seed(8)
+    x = torch.randn(n, d, generator=g).to(dev)
+    qf = torch.randn(Q, d, generator=g).to(dev)
+    for metric in ("L2", "inner_product"):
+        base_p, bsq = _pad_and_norms(x, 64 * 128, metric != "inner_product")
+        dim_scale, base8 = _quantize_corpus(base_p)
+        for mode in ("highest", "default", "int8"):
+            if mode == "int8":
+                qp = qf * dim_scale[None, :]
+                t = torch.clamp_min(qp.abs().amax() / 127.0, 1e-30)
+                q = torch.clamp(torch.round(qp / t), -127, 127).to(torch.int8)
+                t_eff = (t if metric == "inner_product" else 2.0 * t).reshape(1, 1)
+                out, ref, rec = k2_measure(q, base8, bsq, metric=metric, t_eff=t_eff)
+                tol = k2_tolerance(q, base8)
+            else:
+                out, ref, rec = k2_measure(qf, base_p, bsq, metric=metric, precision=mode)
+                tol = k2_tolerance(qf, base_p)
+            if not bool((out[:, -1] < 1e29).all()):
+                raise AssertionError(f"K2 {mode} {metric}: the padded group lost its real rows")
+            err = float((out - ref).abs().max())
+            log(f"K2 {mode:8s} {metric:13s}: max|kernel-plain|={err:.3g} (tol {tol:.3g}) "
+                f"{rec['ms']:.3f} ms, plain {rec['plain_ms']:.3f} ms, bound "
+                f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}), library "
+                f"{rec['library_ms']:.3f} ms")
+            if err > tol:
+                raise AssertionError(f"K2 {mode} {metric}: {err} > {tol}")
+
+
+def check_self_knn(x_dev, knn, k, n_rows=1024, seed=0) -> None:
+    """The self-kNN on `n_rows` sampled rows against a brute-force top-k in
+    true fp32 on the card (the rule of tests/test_knn_pallas.py): the f64
+    distances of the returned ids allclose, ids exact where no tie, no row
+    holding itself.  Two f32 rankings may swap candidates whose distances
+    differ by less than the f32 score error, 2·d·eps·(‖x_i‖² + max‖x‖² +
+    2‖x_i‖·max‖x‖); such pairs count as ties."""
+    n, d = x_dev.shape
+    rows = torch.as_tensor(np.random.default_rng(seed).choice(n, n_rows, replace=False),
+                           device=x_dev.device)
+    xs = x_dev[rows]
+    xsq = (x_dev * x_dev).sum(1)
+    sc = xsq[None, :] - 2.0 * (xs @ x_dev.T)
+    sc[torch.arange(n_rows, device=x_dev.device), rows] = torch.inf
+    brute = torch.topk(sc, k, dim=1, largest=False).indices
+    got = torch.as_tensor(knn, device=x_dev.device)[rows].long()
+    if bool((got == rows[:, None]).any()) or bool((got < 0).any()):
+        raise AssertionError("self-kNN: a row holds itself or a -1")
+    x64 = x_dev.double()
+
+    def dist(ids):
+        return ((x64[ids] - x64[rows][:, None, :]) ** 2).sum(-1)
+
+    d_got, d_brute = dist(got), dist(brute)
+    xn_max = float(xsq.max())
+    tol = (2 * d * EPS32 * (xsq[rows] + xn_max + 2 * (xsq[rows] * xn_max).sqrt())).double()
+    off = (d_got - d_brute).abs()
+    if not bool((off <= tol[:, None]).all()):
+        raise AssertionError(f"self-kNN ids differ from brute force beyond a tie: "
+                             f"distance off by {float(off.max())}")
+    log(f"self-kNN check: {n_rows} sampled rows exact against a brute-force top-{k} "
+        f"({int((got != brute).sum())} swaps between tied candidates, largest distance "
+        f"gap {float(off.max()):.3g}, tie tolerance >= {float(tol.min()):.3g})")
+
+
+def phase_trained_index(dev, n=1_000_000, d=128, n_bkt=1024, batch=65536, k=10,
+                        n_epoch=6):
+    """bench.py's build_trained_index on the card, with the self-kNN through
+    the fused path and K2 (as the pipelines run it on an accelerator)."""
+    from lira_tpu_torch.config import Config
+    from lira_tpu_torch.io.datasets import HARD_REGIME, hard_regime_sig, synthetic_dataset
+    from lira_tpu_torch.labels.distr import knn_bucket_labels
+    from lira_tpu_torch.labels.scaler import scaled_centroid_distances
+    from lira_tpu_torch.models.train import make_train_state, train_epoch
+    from lira_tpu_torch.ops.groupmin import groupmin
+    from lira_tpu_torch.ops.knn_pallas import _pad_and_norms
+    from lira_tpu_torch.partition.assign import build_bucket_layout
+    from lira_tpu_torch.partition.kmeans import kmeans_assign, kmeans_fit
+    from lira_tpu_torch.pipelines.smallscale import get_self_knn
+
+    t0 = time.perf_counter()
+    ds = synthetic_dataset(**HARD_REGIME, n_base=n, n_query=batch, dim=d, compute_gt=False)
+    x_d, x_q = ds.base, ds.query
+    log(f"corpus {n}x{d} + {batch} queries ({hard_regime_sig()}): "
+        f"{time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    km = kmeans_fit(x_d, n_bkt, niter=20, seed=43, device=dev)
+    assign = kmeans_assign(x_d, km.centroids, device=dev)
+    layout = build_bucket_layout(assign, n_bkt)
+    log(f"index: kmeans objective {km.objective[0]:.4g} -> {km.objective[-1]:.4g}, "
+        f"{layout.total} rows in {n_bkt} buckets (sizes {layout.sizes.min()}.."
+        f"{layout.sizes.max()}): {time.perf_counter() - t0:.1f}s")
+
+    q_tile = 8192
+    groupmin.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    knn = get_self_knn(x_d, Config(k=k), use_cache=False, device=dev)
+    t_knn = time.perf_counter() - t0
+    launches = groupmin.launches
+    log(f"self-kNN k={k} through K2 (f32): {t_knn:.2f}s, {launches} K2 launches")
+    if launches != -(-n // q_tile):
+        raise AssertionError(f"self-kNN launched K2 {launches} times, not {-(-n // q_tile)}")
+    if knn.shape != (n, k):
+        raise AssertionError(f"self-kNN shape {knn.shape}")
+    x_dev = torch.as_tensor(x_d, device=dev)
+    check_self_knn(x_dev, knn, k)
+
+    # K2 at the main path's shape: one launch (the first query tile of the
+    # self-kNN against the whole padded corpus), and all of the run's
+    # launches timed back to back
+    n_pad = -(-n // 128) * 128
+    base_p, bsq = _pad_and_norms(x_dev, n_pad, True)
+    del x_dev
+    out, ref, rec = k2_measure(base_p[:q_tile], base_p, bsq, metric="L2", reps=3)
+    err = float((out - ref).abs().max())
+    tol = k2_tolerance(base_p[:q_tile], base_p)
+    del out, ref
+    tiles = [base_p[s : s + q_tile] for s in range(0, n, q_tile)]
+    tiles[-1] = torch.nn.functional.pad(tiles[-1], (0, 0, 0, q_tile - len(tiles[-1])))
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for qt in tiles:
+        groupmin(qt, base_p, bsq, metric="L2")
+    end.record()
+    end.synchronize()
+    all_ms = start.elapsed_time(end)
+    log(f"K2 at the main path's shape (Q={q_tile}, n_pad={n_pad}, d={d}, f32 L2): "
+        f"max|kernel-plain|={err:.3g} (tol {tol:.3g}), {rec['ms']:.3f} ms, plain "
+        f"{rec['plain_ms']:.3f} ms, bound {rec['bound_ms']:.3f} ms ({rec['bound_by']}), "
+        f"library {rec['library_ms']:.3f} ms, "
+        f"{2.0 * q_tile * n_pad * d / rec['ms'] / 1e9:.1f} TFLOP/s; "
+        f"all {len(tiles)} tiles {all_ms:.1f} ms (bound {len(tiles) * rec['bound_ms']:.1f} ms)")
+    if err > tol:
+        raise AssertionError(f"K2 main-path inputs: {err} > {tol}")
+    k2 = {"name": "groupmin[float32,L2]", "route": "cuda", "source": K2_SOURCE,
+          "replaces": K2_REPLACES, "launches": launches, "max_abs_err": err,
+          "ms": rec["ms"], "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+          "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
+          "all_launches_ms": all_ms, "all_launches_bound_ms": len(tiles) * rec["bound_ms"]}
+    del base_p, bsq, tiles
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    labels = knn_bucket_labels(knn, assign.reshape(-1, 1), n_bkt)
+    log(f"labels: {labels.shape} {labels.dtype}, mean {labels.sum(1).mean():.2f} buckets "
+        f"per row: {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    dist, _, scaler = scaled_centroid_distances(x_d, x_q[:8], km.centroids, device=dev)
+    torch.cuda.synchronize()
+    log(f"scaled distances {tuple(dist.shape)} on the card: {time.perf_counter() - t0:.1f}s")
+    state = make_train_state(43, n_bkt, d, device=dev)
+    x_tr = torch.as_tensor(x_d, device=dev)
+    lab = torch.as_tensor(labels, device=dev)
+    losses = []
+    for epoch in range(n_epoch):
+        t0 = time.perf_counter()
+        state, loss = train_epoch(state, dist, x_tr, lab, batch_size=256)
+        torch.cuda.synchronize()
+        losses.append(loss)
+        log(f"train epoch {epoch}: loss {loss:.6f}, {time.perf_counter() - t0:.1f}s "
+            f"({-(-n // 256)} steps at batch 256)")
+    if not all(np.isfinite(losses)) or losses[-1] >= losses[0]:
+        raise AssertionError(f"training did not lower the loss: {losses}")
+    # the device's share of a training step: 64 steps on a copy of the state
+    probe = copy.deepcopy(state)
+    rows = slice(0, 64 * 256)
+    profile_device(lambda: train_epoch(probe, dist[rows], x_tr[rows], lab[rows],
+                                       batch_size=256), "train 64 steps")
+    del probe
+    del dist, x_tr, lab
+    torch.cuda.empty_cache()
+    return dict(x_d=x_d, x_q=x_q, km=km, layout=layout, scaler=scaler,
+                mlp=state.params, k2=k2)
 
 
 def k1_main_path_inputs(eng, x_q, thr):
@@ -211,37 +460,20 @@ def k1_main_path_inputs(eng, x_q, thr):
             torch.as_tensor(ulen, device=dev), h["qb"], t_eff, s2)
 
 
-def phase_main_path(dev, n=1_000_000, d=128, n_bkt=1024, batch=65536, n_gt=4096):
+def phase_serving(dev, idx, batch=65536, n_gt=4096, k=10):
+    """The blocked serving path on the trained index, in every screen dtype."""
     from lira_tpu_torch.engine.calibrate import calibrate_block_margin
     from lira_tpu_torch.engine.screen import union_groupmin
     from lira_tpu_torch.engine.serve import QueryEngine
-    from lira_tpu_torch.io.datasets import HARD_REGIME, hard_regime_sig, synthetic_dataset
-    from lira_tpu_torch.labels.scaler import scaled_centroid_distances
-    from lira_tpu_torch.models.probing_mlp import ProbingMLP
-    from lira_tpu_torch.partition.assign import build_bucket_layout
-    from lira_tpu_torch.partition.kmeans import kmeans_assign, kmeans_fit
+    from lira_tpu_torch.ops.knn import exact_knn
 
-    k = 10
+    x_d, x_q, km, layout, scaler, mlp = (idx[key] for key in
+                                         ("x_d", "x_q", "km", "layout", "scaler", "mlp"))
+    n, n_bkt = len(x_d), layout.n_bkt
     t0 = time.perf_counter()
-    ds = synthetic_dataset(**HARD_REGIME, n_base=n, n_query=batch, dim=d, compute_gt=False)
-    x_d, x_q = ds.base, ds.query
-    log(f"corpus {n}x{d} + {batch} queries ({hard_regime_sig()}): "
+    _, gt = exact_knn(x_d, x_q[:n_gt], k, device=dev)
+    log(f"exact ground truth for {n_gt} queries on the card (ops.knn.exact_knn): "
         f"{time.perf_counter() - t0:.1f}s")
-    t0 = time.perf_counter()
-    km = kmeans_fit(x_d, n_bkt, niter=20, seed=43, device=dev)
-    assign = kmeans_assign(x_d, km.centroids, device=dev)
-    layout = build_bucket_layout(assign, n_bkt)
-    dist, _, scaler = scaled_centroid_distances(x_d, x_q[:8], km.centroids, device=dev)
-    del dist
-    torch.cuda.synchronize()
-    log(f"index: kmeans objective {km.objective[0]:.4g} -> {km.objective[-1]:.4g}, "
-        f"{layout.total} rows in {n_bkt} buckets (sizes {layout.sizes.min()}.."
-        f"{layout.sizes.max()}), scaler fitted: {time.perf_counter() - t0:.1f}s")
-    mlp = ProbingMLP(n_bkt, d, generator=torch.Generator().manual_seed(43))
-
-    t0 = time.perf_counter()
-    gt = exact_gt(torch.as_tensor(x_d, device=dev), torch.as_tensor(x_q[:n_gt], device=dev), k)
-    log(f"exact ground truth for {n_gt} queries on the card: {time.perf_counter() - t0:.1f}s")
 
     kernels = []
     rng = np.random.default_rng(0)
@@ -270,15 +502,19 @@ def phase_main_path(dev, n=1_000_000, d=128, n_bkt=1024, batch=65536, n_gt=4096)
             raise AssertionError("the main path did not launch K1")
         peak = torch.cuda.max_memory_allocated()
 
-        ndis_pct = 100 * r.ndis.mean() / n
+        ndis = float(r.ndis.mean())
         recall = float((r.ids[:n_gt, :, None] == gt[:, None, :]).any(axis=1).mean())
         log(f"serve[{scan_dtype}]: margin={eng.block_margin} nprobe={r.nprobe.mean():.2f} "
-            f"ndis={r.ndis.mean():.0f} ({ndis_pct:.3f}% corpus) recall@{k}={recall:.4f} "
-            f"(untrained MLP) search {batch / r.elapsed:.0f} QPS ({r.elapsed:.3f}s), "
+            f"ndis={ndis:.0f} ({100 * ndis / n:.3f}% corpus) recall@{k}={recall:.4f} "
+            f"(trained MLP; TPU record {TPU_RECALL} at ndis {TPU_NDIS}) "
+            f"search {batch / r.elapsed:.0f} QPS ({r.elapsed:.3f}s), "
             f"stream {len(big) / r_s.elapsed:.0f} QPS ({r_s.elapsed:.3f}s), "
             f"peak device memory {peak / 2**30:.2f} GiB")
         if r.ids.shape != (batch, k) or not np.isfinite(r.scores[r.ids >= 0]).all():
             raise AssertionError("search result has the wrong shape or non-finite scores")
+        if scan_dtype == "int8" and recall < MIN_INT8_RECALL:
+            raise AssertionError(f"int8 recall@{k} {recall:.4f} < {MIN_INT8_RECALL} "
+                                 f"with the trained MLP")
 
         for b in range(4):
             sl = slice(b * batch, (b + 1) * batch)
@@ -300,7 +536,7 @@ def phase_main_path(dev, n=1_000_000, d=128, n_bkt=1024, batch=65536, n_gt=4096)
                 raise AssertionError(f"[{scan_dtype}] query {i}: engine != oracle")
         log(f"oracle[{scan_dtype}]: neighbour sets exact on 64 sampled queries")
 
-        profile_search(eng, x_q, thr, k, scan_dtype)
+        profile_device(lambda: eng.search(x_q, thr, k), scan_dtype)
         q, corpus, supers, ulen, qb, t_eff, s2 = k1_main_path_inputs(eng, x_q, thr)
         sel = eng.block_sel_rows
         out, ref, rec = k1_measure(q, corpus, supers, ulen, qb=qb, metric=eng.metric,
@@ -325,6 +561,58 @@ def phase_main_path(dev, n=1_000_000, d=128, n_bkt=1024, batch=65536, n_gt=4096)
     return kernels
 
 
+def phase_smallscale(dev, n=200_000, n_query=2000, d=128, n_bkt=256, k=10, n_epoch=3):
+    """The small-scale pipeline's entry point on the card, on a hard-regime
+    bundle with exact ground truth."""
+    from lira_tpu_torch.config import Config
+    from lira_tpu_torch.engine.screen import union_groupmin
+    from lira_tpu_torch.io.datasets import HARD_REGIME, synthetic_dataset
+    from lira_tpu_torch.ops.groupmin import groupmin
+    from lira_tpu_torch.pipelines.smallscale import run_smallscale
+
+    t0 = time.perf_counter()
+    bundle = synthetic_dataset(**HARD_REGIME, n_base=n, n_query=n_query, dim=d, k_gt=k,
+                               name="smoke")
+    log(f"small-scale bundle {n}x{d}, {n_query} queries with exact ground truth: "
+        f"{time.perf_counter() - t0:.1f}s")
+    with tempfile.TemporaryDirectory() as logdir:
+        cfg = Config(dataset="smoke", k=k, n_bkt=n_bkt, n_epoch=n_epoch, n_mul=2,
+                     duplicate_type="model", data_path=logdir).update()
+        cfg.pth_log = logdir + "/"
+        groupmin.launches = union_groupmin.launches = 0
+        t0 = time.perf_counter()
+        res = run_smallscale(cfg, bundle=bundle, serve_sweep=True, use_cache=False,
+                             device=dev)
+        wall = time.perf_counter() - t0
+        k2, k1 = groupmin.launches, union_groupmin.launches
+        csvs = sorted(os.path.relpath(os.path.join(r, f), logdir)
+                      for r, _, fs in os.walk(logdir) for f in fs if f.endswith(".csv"))
+    log(f"run_smallscale on the card: {wall:.1f}s, K2 launches {k2}, K1 launches {k1}, "
+        f"{len(csvs)} CSV files")
+    if k2 != -(-n // 8192) or k1 <= 0:
+        raise AssertionError(f"run_smallscale: K2 launched {k2} times, K1 {k1} times")
+    if len(res["epoch_rows"]) != n_epoch + 1 or len(res["sweep_parts"]) != 2 or len(csvs) != 3:
+        raise AssertionError("run_smallscale: missing epoch rows, sweep parts or CSV files")
+    for part, rows in enumerate(res["sweep_parts"]):
+        nprobe = [r.nprobe for r in rows]
+        recall = [r.recall for r in rows]
+        if (any(a < b for a, b in zip(nprobe, nprobe[1:]))
+                or any(a < b - 1e-12 for a, b in zip(recall, recall[1:]))):
+            raise AssertionError(f"sweep part {part}: nprobe/recall do not grow as the "
+                                 f"threshold falls")
+        log(f"sweep part {part}: threshold {rows[0].threshold:.2f} -> nprobe "
+            f"{nprobe[0]:.2f} recall {recall[0]:.4f}; threshold {rows[-1].threshold:.2f} "
+            f"-> nprobe {nprobe[-1]:.2f} recall {recall[-1]:.4f}")
+    last = res["epoch_rows"][-1]
+    log(f"epoch table: {len(res['epoch_rows'])} rows, last {last}")
+    serve = res["serve_rows"]
+    log(f"serving sweep: {len(serve)} thresholds, recall {serve[0]['avg_recall']:.4f} at "
+        f"nprobe {serve[0]['avg_nprobe']:.2f} .. {serve[-1]['avg_recall']:.4f} at "
+        f"{serve[-1]['avg_nprobe']:.2f}")
+    del res
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -342,15 +630,22 @@ def main() -> int:
     log(f"nvidia-smi: {smi}")
 
     t0 = time.perf_counter()
-    info = build(["union_groupmin"])["union_groupmin"]
-    log(f"built K1 in {time.perf_counter() - t0:.1f}s -> {info['path']}")
-    log(info["ptxas"])
+    built = build(["union_groupmin", "groupmin"])  # one nvcc each, in parallel
+    log(f"built K1 and K2 in {time.perf_counter() - t0:.1f}s")
+    for name, info in built.items():
+        log(f"{name}: {info['seconds']:.1f}s -> {info['path']}")
+        log(info["ptxas"])
 
-    # the script's own f32 products (the exact ground truth, the library
-    # yardstick, the tolerances) in true fp32, as the port's f32 paths are
+    # the script's own f32 products (the brute-force checks, the library
+    # yardsticks, the tolerances) in true fp32, as the port's f32 paths are
     with true_fp32():
         phase_k1_grid(dev)
-        kernels = phase_main_path(dev)
+        phase_k2_grid(dev)
+        idx = phase_trained_index(dev)
+        kernels = phase_serving(dev, idx)
+        kernels.append(idx.pop("k2"))
+        del idx
+        phase_smallscale(dev)
     log(smi)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

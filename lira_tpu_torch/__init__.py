@@ -5,14 +5,20 @@ obvious counterpart there.  The package imports torch and numpy only:
 never jax, and never a module of `lira_tpu` (the JAX package is the
 reference the port is tested against, not a dependency).
 
-Layer map of this slice (the blocked serving path):
+Layer map of the ported slices (blocked serving; training and the
+small-scale pipeline):
 
-    io/         fvecs/ivecs/bvecs, synthetic corpora (byte-identical to lira_tpu's)
-    ops/        distances, a top-k with lax.top_k's tie rule
+    pipelines/  run_smallscale (build → train → redundancy → sweeps)
+    io/         fvecs/ivecs/bvecs, synthetic corpora (byte-identical to
+                lira_tpu's), the self-kNN cache
+    ops/        distances, a top-k with lax.top_k's tie rule, exact kNN,
+                the fused two-round kNN with the K2 group-min kernel
     partition/  K-Means (Lloyd on the card), bucket layout, locality tour
-    labels/     distance-feature standardizer
-    models/     probing MLP as an nn.Module (+ lira_tpu parameter converters)
-    engine/     QueryEngine, the blocked scan, the K1 screen kernel, calibration
+    labels/     kNN → bucket labels, distance-feature standardizer
+    models/     probing MLP as an nn.Module, its training loops, metrics
+    redundancy/ model-chosen replicas of boundary points
+    engine/     QueryEngine, the blocked scan, the K1 screen kernel,
+                calibration, the per-bucket evaluation scan and sweep
     csrc/       hand-written CUDA kernels, built with nvcc at first use
 
 Entry points run on `cuda` unless the caller passes `device="cpu"`.

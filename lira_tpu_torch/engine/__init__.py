@@ -1,6 +1,8 @@
 from .calibrate import MarginCalibration, autotune_block_q, calibrate_block_margin
+from .scan import BucketCorpus, bucket_topk
 from .screen import union_groupmin, union_groupmin_ref
 from .serve import QueryEngine, SearchResult
+from .sweep import SweepRow, gt_hit_tensor, threshold_sweep
 
 __all__ = [
     "QueryEngine",
@@ -10,4 +12,9 @@ __all__ = [
     "MarginCalibration",
     "union_groupmin",
     "union_groupmin_ref",
+    "BucketCorpus",
+    "bucket_topk",
+    "SweepRow",
+    "gt_hit_tensor",
+    "threshold_sweep",
 ]

@@ -1,3 +1,4 @@
+from .cache import knn_cache_dir, load_knn_cache, save_knn_cache
 from .xvecs import read_xvecs, write_xvecs
 from .datasets import (
     HARD_REGIME, DatasetBundle, hard_regime_sig, load_data, synthetic_dataset,
@@ -13,4 +14,7 @@ __all__ = [
     "load_data",
     "synthetic_dataset",
     "write_dataset",
+    "knn_cache_dir",
+    "load_knn_cache",
+    "save_knn_cache",
 ]

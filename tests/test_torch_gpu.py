@@ -1,5 +1,6 @@
-"""Tests that need the card (marker `gpu`): K1 built with nvcc and held
-against its plain version, and the CUDA engine against the CPU engine.
+"""Tests that need the card (marker `gpu`): K1 and K2 built with nvcc and
+held against their plain versions, and the CUDA engine and the fused kNN
+against the CPU port.
 They skip without a CUDA device; on an H100 run
 
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
@@ -9,8 +10,11 @@ machine does not have; this file imports only torch and the port.)
 
 Tolerance for K1: |kernel − plain| ≤ 2·d·eps32·(max‖x‖² + 2·max‖x‖·‖q‖)
 (the same exact products summed in another f32 order); int8 inner-product
-scores are exact.  The engines must agree on nprobe, ndis and neighbour
-sets exactly.
+scores are exact.  K2 the same for f32 and bf16-rounded inputs; its int8
+minima are exact (both round the integer dot to f32 and apply the same
+two f32 operations).  The engines must agree on nprobe, ndis and
+neighbour sets exactly; the fused kNN on ids, except between candidates
+whose f64 distances tie to rtol 1e-6.
 """
 
 import numpy as np
@@ -98,3 +102,65 @@ def test_cuda_engine_matches_cpu_engine(cuda, scan_dtype):
         assert set(r_c.ids[i]) == set(r_g.ids[i]), i
     r_s = e_gpu.search_stream(np.concatenate([xq, xq]), thr, 10, batch_size=300)
     np.testing.assert_array_equal(r_s.ids, np.concatenate([r_g.ids, r_g.ids]))
+
+
+@pytest.mark.parametrize("metric", ["L2", "inner_product"])
+@pytest.mark.parametrize("mode", ["highest", "default", "int8"])
+def test_k2_kernel_matches_plain(cuda, mode, metric):
+    from lira_tpu_torch.ops.groupmin import groupmin, groupmin_ref
+
+    g = torch.Generator().manual_seed(3)
+    Q, n, n_pad, d = 300, 1200, 1280, 37  # ragged query tile, pad rows, odd d
+    x = torch.zeros(n_pad, d)
+    x[:n] = torch.randn(n, d, generator=g)
+    q = torch.randn(Q, d, generator=g)
+    bsq = torch.full((n_pad,), 1e30)
+    bsq[:n] = (x[:n] * x[:n]).sum(1) if metric == "L2" else 0.0
+    kw = dict(metric=metric)
+    if mode == "int8":
+        s = torch.clamp_min(x.abs().amax(0), 1e-30) / 127.0
+        x = torch.clamp(torch.round(x / s), -127, 127).to(torch.int8)
+        t = (q * s).abs().amax() / 127.0
+        q = torch.clamp(torch.round(q * s / t), -127, 127).to(torch.int8)
+        kw["t_eff"] = (t if metric == "inner_product" else 2 * t).reshape(1, 1).to(cuda)
+    else:
+        kw["precision"] = mode
+    args = [a.to(cuda) for a in (q, x, bsq.view(-1, 128))]
+    before = groupmin.launches
+    got = groupmin(*args, **kw)
+    torch.cuda.synchronize()
+    assert groupmin.launches == before + 1 and got.shape == (Q, n_pad // 128)
+    want = groupmin_ref(*args, **kw)
+    assert bool((got[:, -1] < 1e29).all())  # the partly padded group
+    if mode == "int8":
+        tol = 0.0
+    else:
+        qf, xf = args[0].float(), args[1].float()
+        xn = float((xf * xf).sum(1).max())
+        qn = float((qf * qf).sum(1).max())
+        tol = 2 * d * EPS32 * (xn + 2 * (xn * qn) ** 0.5)
+    assert float((got - want).abs().max()) <= tol
+
+
+@pytest.mark.parametrize("precision", ["highest", "default", "int8"])
+def test_knn_fused_cuda_matches_cpu(cuda, precision):
+    from lira_tpu_torch.ops.groupmin import groupmin
+    from lira_tpu_torch.ops.knn_pallas import knn_fused, self_knn_fused
+
+    rng = np.random.default_rng(4)
+    base = rng.normal(size=(5000, 32)).astype(np.float32)
+    query = rng.normal(size=(700, 32)).astype(np.float32)
+    margin = None if precision == "highest" else 40  # 40 groups: exhaustive
+    kw = dict(k=10, precision=precision, margin=margin, q_tile=512)
+    before = groupmin.launches
+    _, i_g = knn_fused(base, query, device=cuda, **kw)
+    assert groupmin.launches == before + 2  # two 512-query tiles
+    _, i_c = knn_fused(base, query, device="cpu", **kw)
+    dist = ((query[:, None, :].astype(np.float64) - base[None].astype(np.float64)) ** 2).sum(-1)
+    rows = np.arange(len(query))[:, None]
+    np.testing.assert_allclose(dist[rows, i_g], dist[rows, i_c], rtol=1e-6)
+    tied = np.isclose(dist[rows, i_g], dist[rows, i_c], rtol=1e-6) & (i_g != i_c)
+    np.testing.assert_array_equal(np.where(tied, i_c, i_g), i_c)
+    if precision == "highest":
+        k_g = self_knn_fused(base, 5, precision="highest", device=cuda)
+        assert not (k_g == np.arange(len(base))[:, None]).any()

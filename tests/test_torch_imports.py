@@ -1,6 +1,7 @@
 """lira_tpu_torch and chip_smoke.py import neither jax nor lira_tpu: checked
-statically (every import statement) and at run time (a tiny CPU search in
-a fresh interpreter leaves no jax module loaded)."""
+statically (every import statement) and at run time (a tiny CPU search,
+self-kNN and training epoch in a fresh interpreter leave no jax module
+loaded)."""
 
 import ast
 import os
@@ -42,6 +43,11 @@ from lira_tpu_torch.engine.serve import QueryEngine
 from lira_tpu_torch.labels.scaler import scaled_centroid_distances
 from lira_tpu_torch.models.probing_mlp import ProbingMLP
 from lira_tpu_torch.partition import build_bucket_layout, kmeans_assign, kmeans_fit
+from lira_tpu_torch.pipelines.smallscale import run_smallscale
+from lira_tpu_torch.ops.knn_pallas import self_knn_fused
+from lira_tpu_torch.models.train import make_train_state, train_epoch
+import lira_tpu_torch.config, lira_tpu_torch.io.cache, lira_tpu_torch.engine.sweep  # noqa: F401
+import lira_tpu_torch.redundancy.assign, lira_tpu_torch.models.metrics  # noqa: F401
 import chip_smoke  # noqa: F401
 
 rng = np.random.default_rng(0)
@@ -53,6 +59,10 @@ mlp = ProbingMLP(4, 8, generator=torch.Generator().manual_seed(0))
 eng = QueryEngine(x, layout, km.centroids, sc, mlp, scan_dtype="int8", device="cpu")
 r = eng.search(x[:5], 0.5, 3)
 assert r.ids.shape == (5, 3)
+knn = self_knn_fused(x, 3, precision="int8", device="cpu")
+assert knn.shape == (600, 3)
+st = make_train_state(0, 4, 8, device="cpu")
+train_epoch(st, np.zeros((70, 4), np.float32), x[:70], np.zeros((70, 4), np.float32))
 loaded = sorted(m for m in sys.modules
                 if m == "jax" or m.startswith("jax.") or m == "lira_tpu"
                 or m.startswith("lira_tpu."))
