@@ -1,7 +1,8 @@
 """Smoke run of lira_tpu_torch on one NVIDIA H100: builds every CUDA kernel
 of the ported paths from csrc/, holds each against its plain PyTorch
-version, trains the probing model at full size, serves with it, runs the
-small-scale pipeline, and checks the answers.
+version, trains the probing model at full size, serves with it through
+every scan path (blocked, per-query xla and pallas, capacity mode, the IVF
+prober), runs the small-scale pipeline, and checks the answers.
 
     python3 chip_smoke.py
 
@@ -13,6 +14,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      sel_rows at qb=1024, d=128, U=64 with a partly dead union, timed;
   4. K2 against its plain version on the card: f32, bf16-rounded and int8
      × L2 and IP at Q=8192, d=128 over 64 groups, one partly padded, timed;
+     K3 against its plain version: k in {1, 20, 36, 128} × L2 and IP at
+     B=2048, T=64, d=128 (lists with -1 holes, a tile listed twice, a
+     partly padded tile), and one small case at d=960, timed;
   5. the trained index at full size (bench.py's recipe): a 1M×128
      hard-regime corpus, K-Means to 1024 buckets, the self-kNN (k=10)
      through the fused path and K2 in f32 (123 launches, checked exact on
@@ -27,12 +31,26 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      64 sampled queries against a numpy oracle over the probed buckets,
      stream == per-batch search, a torch.profiler breakdown of one warm
      `search`, and K1 at the main path's inputs against its plain version;
+     then on the same trained index and threshold:
+     - the per-query engines, scan_impl "pallas" (K3) and "xla", in f32
+       and bf16 on the full 65536-query batch: nprobe/ndis equal to the
+       blocked f32 engine's, neighbour sets equal to its up to ties,
+       recall beside it, the oracle, stream == search, 32 K3 launches per
+       batch; K3 alone at the main path's inputs (one 2048-query block and
+       all 32) against its plain version and a gather + bmm yardstick, the
+       xla scan on the same blocks, and the seconds of `_probe_tiles`;
+     - capacity mode (store_f32=False) in bf16 and int8: K1 launched,
+       nprobe/ndis equal to the store_f32 engine's, recall within 0.01 of
+       it, queries whose neighbour sets differ, table bytes, peak memory;
+     - the IVF baseline (prober=ivf_probe_matrix, blocked f32) at exactly
+       8 buckets a query: recall and ndis beside LIRA's, and the oracle
+       over the 8 nearest centroids' buckets;
   7. `run_smallscale` on the card: 200k×128, 2000 queries with exact
      ground truth, 256 buckets, k=10, 3 epochs, model redundancy, the
      serving sweep;
-  8. a `{"kernels": [...]}` line (K1 ×3 dtypes and K2 at the main path's
-     shapes: time, plain time, bound, library yardstick, launches in the
-     main path's run).
+  8. a `{"kernels": [...]}` line (K1 ×3 dtypes, K2 and K3 — one launch and
+     a whole batch — at the main path's shapes: time, plain time, bound,
+     library yardstick, launches in the main path's run).
 The last line is {"ok": true, "device": {...}}.
 """
 
@@ -57,9 +75,12 @@ K1_SOURCE = "lira_tpu_torch/csrc/union_groupmin.cu"
 K1_REPLACES = "lira_tpu/engine/block_scan.py:145"
 K2_SOURCE = "lira_tpu_torch/csrc/groupmin.cu"
 K2_REPLACES = "lira_tpu/ops/knn_pallas.py:39"
+K3_SOURCE = "lira_tpu_torch/csrc/probed_scan.cu"
+K3_REPLACES = "lira_tpu/engine/pallas_scan.py:33"
 # the TPU record (BENCH_r05.json; only its hardware-independent columns)
 TPU_RECALL, TPU_NDIS = 0.8370, 7755
 MIN_INT8_RECALL = 0.75  # the trained MLP's floor at the bench's operating point
+CAPACITY_RECALL_DROP = 0.01  # capacity mode may lose at most this much recall@10
 DTYPE_NAME = {torch.float32: "float32", torch.bfloat16: "bfloat16", torch.int8: "int8"}
 EPS32 = float(np.finfo(np.float32).eps)
 
@@ -297,6 +318,125 @@ def phase_k2_grid(dev) -> None:
                 raise AssertionError(f"K2 {mode} {metric}: {err} > {tol}")
 
 
+def k3_tolerance(q, corpus) -> float:
+    """Bound on |kernel − plain| for K3's scores: the same exact products
+    summed in another f32 order, 2·d·eps·(max‖x‖² + 2·max‖x‖·max‖q‖)."""
+    d = corpus.shape[-1]
+    xn = float((corpus * corpus).sum(-1).max())
+    qn = float((q * q).sum(1).max())
+    return 2.0 * d * EPS32 * (xn + 2.0 * (xn * qn) ** 0.5)
+
+
+def k3_compare(s_k, i_k, s_r, i_r, tol):
+    """K3 against its plain version on one output: (max |score diff| over
+    the found slots, queries whose id sets differ beyond a tie).  Missing
+    slots must match exactly; an id may differ only where its score is
+    within `tol` of the row's k-th score (the stacks keep the earlier of
+    two equal scores, the plain top-k the lower tile-major index)."""
+    miss_k, miss_r = s_k >= 1e37, s_r >= 1e37
+    if not torch.equal(miss_k, miss_r):
+        raise AssertionError("K3: the kernel and the plain version miss different slots")
+    live = ~miss_r
+    err = float((s_k - s_r)[live].abs().max()) if bool(live.any()) else 0.0
+    kth = torch.where(live, s_r, -torch.inf).amax(dim=1, keepdim=True)
+    inside_r, inside_k = live & (s_r < kth - tol), live & (s_k < kth - tol)
+    in_k = (i_r[:, :, None] == i_k[:, None, :]).any(dim=2)
+    in_r = (i_k[:, :, None] == i_r[:, None, :]).any(dim=2)
+    bad = (inside_r & ~in_k).any(dim=1) | (inside_k & ~in_r).any(dim=1)
+    return err, int(bad.sum())
+
+
+def k3_work(q, tiles, corpus, k):
+    """(operations, bytes, streamed bytes) of one K3 call on these inputs:
+    2·d per (query, live tile row); bytes read once each (the distinct
+    tiles with their ids and norms, the queries, the lists) plus the (B, k)
+    result; streamed = what each query reads of its own tiles."""
+    d = corpus.shape[-1]
+    valid = tiles >= 0
+    pairs = int(valid.sum())
+    uniq = int(torch.unique(tiles[valid]).numel())
+    ops = 2.0 * pairs * 128 * d
+    nbytes = (uniq * 128 * (4 * d + 8) + q.numel() * 4 + tiles.numel() * 4
+              + tiles.shape[0] * k * 8)
+    return ops, nbytes, pairs * 128 * (4 * d + 8)
+
+
+def k3_library_ms(q, tiles, corpus, reps, budget=1 << 28):
+    """The gather of each query's listed tiles plus one torch.bmm (cuBLAS,
+    TF32 off) against its query, in chunks of queries whose gather fits
+    `budget` f32 elements, each chunk timed, summed; no top-k."""
+    B, T = tiles.shape
+    d = corpus.shape[-1]
+    step = max(1, budget // (T * 128 * d))
+    total = 0.0
+    for s in range(0, B, step):
+        idx = tiles[s : s + step].long().clamp_min(0)
+        qs = q[s : s + step, :, None]
+        n = idx.shape[0]
+        total += time_ms(lambda i=idx, x=qs, n=n: torch.bmm(
+            corpus[i].view(n, T * 128, d), x), reps)
+    return total
+
+
+def k3_measure(q, tiles, corpus, ids, sq, k, metric, reps=5, plain_reps=2):
+    """K3 vs its plain version on one input: outputs, and the timing/bound
+    record."""
+    from lira_tpu_torch.engine.pallas_scan import pallas_probed_scan, probed_scan_ref
+
+    out = pallas_probed_scan(q, tiles, corpus, ids, sq, k, metric)
+    ref = probed_scan_ref(q, tiles, corpus, ids, sq, k, metric)
+    torch.cuda.synchronize()
+    ms = time_ms(lambda: pallas_probed_scan(q, tiles, corpus, ids, sq, k, metric), reps)
+    plain_ms = time_ms(lambda: probed_scan_ref(q, tiles, corpus, ids, sq, k, metric),
+                       plain_reps)
+    ops, nbytes, streamed = k3_work(q, tiles, corpus, k)
+    t_ops, t_bytes = ops / PEAK_OPS[torch.float32], nbytes / PEAK_BYTES
+    rec = dict(ms=ms, plain_ms=plain_ms, bound_ms=1e3 * max(t_ops, t_bytes),
+               bound_by="operations" if t_ops >= t_bytes else "bytes",
+               library_ms=k3_library_ms(q, tiles, corpus, reps),
+               streamed_ms=1e3 * streamed / PEAK_BYTES, streamed_gb=streamed / 1e9)
+    return out, ref, rec
+
+
+def phase_k3_grid(dev) -> None:
+    """k in {1, 20, 36, 128} × L2 and IP at the main path's block size and
+    d, lists with -1 holes in the middle, a tile listed twice and a partly
+    padded tile; plus one small case at d=960."""
+    g = torch.Generator(device="cpu").manual_seed(9)
+    for d, n_tiles, B, T, ks in ((128, 4096, 2048, 64, (1, 20, 36, 128)),
+                                 (960, 64, 256, 16, (20,))):
+        corpus = torch.randn(n_tiles, 128, d, generator=g).to(dev)
+        ids = torch.arange(n_tiles * 128, dtype=torch.int32).view(n_tiles, 128)
+        ids[-1, 77:] = -1  # a partly padded tile
+        ids = ids.to(dev)
+        tiles = torch.randint(0, n_tiles, (B, T), generator=g, dtype=torch.int32)
+        tiles[torch.rand(B, T, generator=g) < 0.25] = -1  # holes
+        tiles[:, 1] = tiles[:, 0]  # a tile listed twice
+        tiles[::7, 2] = n_tiles - 1
+        tiles[3] = -1  # a query with no tile
+        tiles, q = tiles.to(dev), torch.randn(B, d, generator=g).to(dev)
+        norms = (corpus * corpus).sum(-1)
+        for metric in ("L2", "inner_product"):
+            sq = norms if metric == "L2" else torch.zeros_like(norms)
+            sq = torch.where(ids >= 0, sq, 3e38)
+            for k in ks:
+                (s_k, i_k), (s_r, i_r), rec = k3_measure(q, tiles, corpus, ids, sq, k,
+                                                         metric, reps=3)
+                tol = k3_tolerance(q, corpus)
+                err, bad = k3_compare(s_k, i_k, s_r, i_r, tol)
+                log(f"K3 d={d} {metric:13s} k={k:3d}: max|kernel-plain|={err:.3g} (tol "
+                    f"{tol:.3g}), {bad} queries with other ids; {rec['ms']:.3f} ms, plain "
+                    f"{rec['plain_ms']:.3f} ms, bound {rec['bound_ms']:.4f} ms "
+                    f"({rec['bound_by']}), streamed {rec['streamed_gb']:.2f} GB "
+                    f"({rec['streamed_ms']:.3f} ms at peak), library "
+                    f"{rec['library_ms']:.3f} ms")
+                if err > tol or bad:
+                    raise AssertionError(f"K3 d={d} {metric} k={k}: err {err} (tol {tol}), "
+                                         f"{bad} queries differ")
+        del corpus, norms
+        torch.cuda.empty_cache()
+
+
 def check_self_knn(x_dev, knn, k, n_rows=1024, seed=0) -> None:
     """The self-kNN on `n_rows` sampled rows against a brute-force top-k in
     true fp32 on the card (the rule of tests/test_knn_pallas.py): the f64
@@ -460,8 +600,41 @@ def k1_main_path_inputs(eng, x_q, thr):
             torch.as_tensor(ulen, device=dev), h["qb"], t_eff, s2)
 
 
+def check_oracle(eng, r, idx, thr, k, tag, rng, n_chk=256, n=64):
+    """Exact neighbour sets on `n` of the first `n_chk` queries against a
+    numpy oracle over the buckets the engine probes for them."""
+    x_d, x_q, layout = idx["x_d"], idx["x_q"], idx["layout"]
+    probed = eng._select_probed(x_q[:n_chk], thr)
+    for i in rng.choice(n_chk, size=n, replace=False):
+        members = np.unique(np.concatenate(
+            [layout.bucket_members(bb) for bb in np.nonzero(probed[i])[0]]
+        ))
+        dd = ((x_d[members] - x_q[i]) ** 2).sum(axis=1)
+        expect = set(members[np.argsort(dd, kind="stable")][: min(k, len(members))])
+        got = set(int(v) for v in r.ids[i] if v >= 0)
+        if got != expect:
+            raise AssertionError(f"[{tag}] query {i}: engine != oracle")
+    log(f"oracle[{tag}]: neighbour sets exact on {n} sampled queries")
+    return probed
+
+
+def check_stream(r, r_s, batch, tag):
+    for b in range(len(r_s.ids) // batch):
+        sl = slice(b * batch, (b + 1) * batch)
+        for name in ("ids", "scores", "nprobe", "ndis"):
+            if not np.array_equal(getattr(r_s, name)[sl], getattr(r, name)):
+                raise AssertionError(f"[{tag}] search_stream batch {b} {name} != search")
+    log(f"stream[{tag}]: {len(r_s.ids) // batch} batches equal per-batch search")
+
+
+def recall_at(ids, gt):
+    return float((ids[: len(gt), :, None] == gt[:, None, :]).any(axis=1).mean())
+
+
 def phase_serving(dev, idx, batch=65536, n_gt=4096, k=10):
-    """The blocked serving path on the trained index, in every screen dtype."""
+    """The blocked serving path on the trained index, in every screen dtype.
+    Returns (kernel records, the run: threshold, ground truth and each
+    dtype's result, recall and margin)."""
     from lira_tpu_torch.engine.calibrate import calibrate_block_margin
     from lira_tpu_torch.engine.screen import union_groupmin
     from lira_tpu_torch.engine.serve import QueryEngine
@@ -476,6 +649,7 @@ def phase_serving(dev, idx, batch=65536, n_gt=4096, k=10):
         f"{time.perf_counter() - t0:.1f}s")
 
     kernels = []
+    run = dict(gt=gt, results={})
     rng = np.random.default_rng(0)
     for scan_dtype in ("int8", "bfloat16", "float32"):
         t0 = time.perf_counter()
@@ -503,7 +677,7 @@ def phase_serving(dev, idx, batch=65536, n_gt=4096, k=10):
         peak = torch.cuda.max_memory_allocated()
 
         ndis = float(r.ndis.mean())
-        recall = float((r.ids[:n_gt, :, None] == gt[:, None, :]).any(axis=1).mean())
+        recall = recall_at(r.ids, gt)
         log(f"serve[{scan_dtype}]: margin={eng.block_margin} nprobe={r.nprobe.mean():.2f} "
             f"ndis={ndis:.0f} ({100 * ndis / n:.3f}% corpus) recall@{k}={recall:.4f} "
             f"(trained MLP; TPU record {TPU_RECALL} at ndis {TPU_NDIS}) "
@@ -516,25 +690,11 @@ def phase_serving(dev, idx, batch=65536, n_gt=4096, k=10):
             raise AssertionError(f"int8 recall@{k} {recall:.4f} < {MIN_INT8_RECALL} "
                                  f"with the trained MLP")
 
-        for b in range(4):
-            sl = slice(b * batch, (b + 1) * batch)
-            for name in ("ids", "scores", "nprobe", "ndis"):
-                if not np.array_equal(getattr(r_s, name)[sl], getattr(r, name)):
-                    raise AssertionError(f"search_stream batch {b} {name} != search")
-        log(f"stream[{scan_dtype}]: 4 batches equal per-batch search")
-
-        n_chk = 256
-        probed = eng._select_probed(x_q[:n_chk], thr)
-        for i in rng.choice(n_chk, size=64, replace=False):
-            members = np.unique(np.concatenate(
-                [layout.bucket_members(bb) for bb in np.nonzero(probed[i])[0]]
-            ))
-            dd = ((x_d[members] - x_q[i]) ** 2).sum(axis=1)
-            expect = set(members[np.argsort(dd, kind="stable")][: min(k, len(members))])
-            got = set(int(v) for v in r.ids[i] if v >= 0)
-            if got != expect:
-                raise AssertionError(f"[{scan_dtype}] query {i}: engine != oracle")
-        log(f"oracle[{scan_dtype}]: neighbour sets exact on 64 sampled queries")
+        check_stream(r, r_s, batch, scan_dtype)
+        check_oracle(eng, r, idx, thr, k, scan_dtype, rng)
+        run["thr"] = thr
+        run["results"][scan_dtype] = dict(r=r, recall=recall, margin=eng.block_margin,
+                                          peak=peak)
 
         profile_device(lambda: eng.search(x_q, thr, k), scan_dtype)
         q, corpus, supers, ulen, qb, t_eff, s2 = k1_main_path_inputs(eng, x_q, thr)
@@ -558,7 +718,289 @@ def phase_serving(dev, idx, batch=65536, n_gt=4096, k=10):
         })
         del eng, out, ref, q, corpus
         torch.cuda.empty_cache()
+    return kernels, run
+
+
+def set_diff(x_d, x_q, ids_a, ids_b):
+    """Queries whose neighbour sets differ, split by the exact (f64)
+    distances of both lists: a tie when the sorted distances agree within
+    the f32 score error 2·d·eps·(‖q‖² + max‖x‖² + 2‖q‖·max‖x‖), else a
+    real difference, counted by which side is nearer.  Returns (differ,
+    a nearer, b nearer)."""
+    rows = np.nonzero((np.sort(ids_a, axis=1) != np.sort(ids_b, axis=1)).any(axis=1))[0]
+    if not len(rows):
+        return 0, 0, 0
+    d = x_d.shape[1]
+    xn_max = float(np.einsum("nd,nd->n", x_d, x_d, dtype=np.float64).max())
+    a_near = b_near = 0
+    for i in rows:
+        q = x_q[i].astype(np.float64)
+        qn = float(q @ q)
+        tol = 2 * d * EPS32 * (qn + xn_max + 2 * (qn * xn_max) ** 0.5)
+
+        def dist(ids):
+            x = x_d[np.maximum(ids, 0)].astype(np.float64)
+            return np.sort(np.where(ids >= 0, ((x - q) ** 2).sum(axis=1), np.inf))
+
+        da, db = dist(ids_a[i]), dist(ids_b[i])
+        same = (da == db) | (np.abs(da - db) <= tol)
+        if same.all():
+            continue
+        if (da <= db + tol).all():
+            a_near += 1
+        else:
+            b_near += 1
+    return len(rows), a_near, b_near
+
+
+def per_query_host_steps(eng, x_q, thr):
+    """Seconds of the per-query path's host steps on this batch: the probe
+    with its bucket selection, and `_probe_tiles` (numpy); and the lists'
+    shape."""
+    t0 = time.perf_counter()
+    probed = eng._select_probed(x_q, thr)
+    t1 = time.perf_counter()
+    tiles = eng._probe_tiles(probed)
+    return t1 - t0, time.perf_counter() - t1, tiles.shape
+
+
+def record_scans(eng):
+    """Wrap the engine's `_scan` so that every (queries, tile lists, fetch_k)
+    it is given is kept; returns that list.  `del eng._scan` restores it."""
+    calls = []
+    scan = eng._scan
+
+    def record(q, tiles, fetch_k):
+        calls.append((q, tiles, fetch_k))
+        return scan(q, tiles, fetch_k)
+
+    eng._scan = record
+    return calls
+
+
+def phase_per_query(dev, idx, run, batch=65536, k=10):
+    """QueryEngine(scan_impl="pallas" / "xla") in f32 and bf16 on the
+    trained index, held against the blocked f32 engine of the same run, and
+    K3 alone at the main path's inputs."""
+    from lira_tpu_torch.engine.pallas_scan import pallas_probed_scan
+    from lira_tpu_torch.engine.serve import QueryEngine
+
+    x_d, x_q, km, layout, scaler, mlp = (idx[key] for key in
+                                         ("x_d", "x_q", "km", "layout", "scaler", "mlp"))
+    thr, gt = run["thr"], run["gt"]
+    base = run["results"]["float32"]
+    r_b = base["r"]
+    big = np.tile(x_q, (4, 1))
+    n_blocks = -(-batch // 2048)
+    rng = np.random.default_rng(1)
+    got, kernels = {}, []
+    for impl in ("pallas", "xla"):
+        for dt in ("float32", "bfloat16"):
+            tag = f"{impl} {dt}"
+            t0 = time.perf_counter()
+            eng = QueryEngine(x_d, layout, km.centroids, scaler, mlp, probe_cap=128,
+                              scan_impl=impl, scan_dtype=dt, device=dev)
+            eng.search(x_q[:2048], thr, k)  # first touch: the kernel load, K3's f32 table
+            log(f"engine[{tag}] built and warmed: {time.perf_counter() - t0:.1f}s")
+            calls = record_scans(eng) if impl == "pallas" else None
+            pallas_probed_scan.launches = 0
+            r = eng.search(x_q, thr, k)
+            launches = pallas_probed_scan.launches
+            if calls is not None:
+                del eng._scan
+            r_s = eng.search_stream(big, thr, k, batch_size=batch)
+            launches_s = pallas_probed_scan.launches - launches
+            want = n_blocks if impl == "pallas" else 0
+            log(f"K3 launches [{tag}]: search {launches}, stream {launches_s} "
+                f"(want {want} per batch)")
+            if launches != want or launches_s != 4 * want:
+                raise AssertionError(f"[{tag}] K3 launched {launches}/{launches_s} times")
+            if not (np.array_equal(r.nprobe, r_b.nprobe) and np.array_equal(r.ndis, r_b.ndis)):
+                raise AssertionError(f"[{tag}] nprobe/ndis differ from the blocked engine's")
+            if r.ids.shape != (batch, k) or not np.isfinite(r.scores[r.ids >= 0]).all():
+                raise AssertionError(f"[{tag}] wrong shape or non-finite scores")
+            differ, pq_near, blk_near = set_diff(x_d, x_q, r.ids, r_b.ids)
+            recall = recall_at(r.ids, gt)
+            log(f"serve[{tag}]: nprobe={r.nprobe.mean():.2f} ndis={r.ndis.mean():.0f} (equal "
+                f"to blocked f32) recall@{k}={recall:.4f} (blocked f32 {base['recall']:.4f}); "
+                f"{differ} queries with other neighbour sets than blocked f32: "
+                f"{differ - pq_near - blk_near} ties, {pq_near} nearer here, {blk_near} "
+                f"nearer in blocked; search {batch / r.elapsed:.0f} QPS ({r.elapsed:.3f}s), "
+                f"stream {len(big) / r_s.elapsed:.0f} QPS ({r_s.elapsed:.3f}s)")
+            if blk_near:
+                raise AssertionError(f"[{tag}] {blk_near} queries farther than blocked f32")
+            check_stream(r, r_s, batch, tag)
+            check_oracle(eng, r, idx, thr, k, tag, rng)
+            got[tag] = r
+            if impl == "pallas":
+                if dt == "float32":
+                    probe_s, tiles_s, shape = per_query_host_steps(eng, x_q, thr)
+                    log(f"per-query host steps for {len(x_q)} queries: probe + selection "
+                        f"{probe_s:.3f}s, _probe_tiles {tiles_s:.3f}s (numpy) -> lists "
+                        f"{shape}")
+                kernels += k3_main_path(eng, calls, launches, dt)
+            del eng, r_s
+            torch.cuda.empty_cache()
+    for dt in ("float32", "bfloat16"):
+        differ, a_near, b_near = set_diff(x_d, x_q, got[f"pallas {dt}"].ids,
+                                          got[f"xla {dt}"].ids)
+        log(f"pallas vs xla [{dt}]: {differ} queries differ, {a_near + b_near} beyond a tie")
+        if a_near or b_near:
+            raise AssertionError(f"pallas and xla {dt} differ beyond ties")
     return kernels
+
+
+def k3_main_path(eng, calls, launches, dt):
+    """K3 alone on the (queries, tile lists) that the engine's counted
+    `search` gave it, block by block: one block (the median one of the
+    count-sorted batch) and all of them, against the plain version, the
+    gather + bmm yardstick and the xla scan on the same blocks."""
+    from lira_tpu_torch.engine.pallas_scan import pallas_probed_scan, probed_scan_ref
+    from lira_tpu_torch.engine.serve import _scan_probed_tiles
+
+    fetch_k = calls[0][2]
+    if len(calls) != launches or any(f != fetch_k for _, _, f in calls) or fetch_k > 128:
+        raise AssertionError(f"[pallas {dt}] {len(calls)} scans at fetch_k {fetch_k} for "
+                             f"{launches} launches")
+    blocks = [(q, torch.as_tensor(t, device=eng.device)) for q, t, _ in calls]
+    args = (eng._pallas_corpus, eng.corpus_ids, eng._pallas_sq)
+    table = "f32" if dt == "float32" else "bf16-rounded f32"
+    mid = len(blocks) // 2
+    q_m, t_m = blocks[mid]
+    (s_k, i_k), (s_r, i_r), rec = k3_measure(q_m, t_m, *args, fetch_k, eng.metric, reps=5)
+    tol = k3_tolerance(q_m, eng._pallas_corpus)
+    err, bad = k3_compare(s_k, i_k, s_r, i_r, tol)
+    log(f"K3 [pallas {dt}, {table} table] at the main path's inputs (block {mid} of "
+        f"{len(blocks)}: B={q_m.shape[0]}, T={t_m.shape[1]}, k={fetch_k}): "
+        f"max|kernel-plain|={err:.3g} (tol {tol:.3g}), {bad} queries with other ids; "
+        f"{rec['ms']:.3f} ms, plain {rec['plain_ms']:.3f} ms, bound {rec['bound_ms']:.4f} ms "
+        f"({rec['bound_by']}), streamed {rec['streamed_gb']:.2f} GB ({rec['streamed_ms']:.3f} "
+        f"ms at peak), library {rec['library_ms']:.3f} ms")
+    if err > tol or bad:
+        raise AssertionError(f"K3 [{dt}] main-path block: err {err} (tol {tol}), {bad} differ")
+
+    all_ms = time_ms(lambda: [pallas_probed_scan(q, t, *args, fetch_k, eng.metric)
+                              for q, t in blocks], reps=3)
+    plain_all_ms = time_ms(lambda: [probed_scan_ref(q, t, *args, fetch_k, eng.metric)
+                                    for q, t in blocks], reps=1)
+    xla_all_ms = time_ms(lambda: [_scan_probed_tiles(q, t, eng.corpus, eng.corpus_ids,
+                                                     eng.corpus_sq, fetch_k, eng.metric)
+                                  for q, t in blocks], reps=1)
+    lib_all_ms = sum(k3_library_ms(q, t, eng._pallas_corpus, reps=1) for q, t in blocks)
+    err_all, bad_all, ops, nbytes, streamed = 0.0, 0, 0.0, 0, 0
+    for q, t in blocks:
+        s_k, i_k = pallas_probed_scan(q, t, *args, fetch_k, eng.metric)
+        s_r, i_r = probed_scan_ref(q, t, *args, fetch_k, eng.metric)
+        e, b = k3_compare(s_k, i_k, s_r, i_r, k3_tolerance(q, eng._pallas_corpus))
+        err_all, bad_all = max(err_all, e), bad_all + b
+        o, nb, st = k3_work(q, t, eng._pallas_corpus, fetch_k)
+        ops, nbytes, streamed = ops + o, nbytes + nb, streamed + st
+    t_ops, t_bytes = ops / PEAK_OPS[torch.float32], nbytes / PEAK_BYTES
+    bound_all = 1e3 * max(t_ops, t_bytes)
+    log(f"K3 [pallas {dt}] over the whole batch ({len(blocks)} launches, T "
+        f"{min(t.shape[1] for _, t in blocks)}..{max(t.shape[1] for _, t in blocks)}): "
+        f"{all_ms:.2f} ms, plain {plain_all_ms:.2f} ms, xla scan {xla_all_ms:.2f} ms, "
+        f"library {lib_all_ms:.2f} ms, bound {bound_all:.3f} ms "
+        f"({'operations' if t_ops >= t_bytes else 'bytes'}), streamed {streamed / 1e9:.1f} GB "
+        f"({1e3 * streamed / PEAK_BYTES:.2f} ms at peak, {streamed / all_ms / 1e9:.2f} TB/s "
+        f"achieved); max|kernel-plain|={err_all:.3g}, {bad_all} queries with other ids")
+    if bad_all:
+        raise AssertionError(f"K3 [{dt}] whole batch: {bad_all} queries differ")
+    name = f"probed_scan[{table},{eng.metric},k={fetch_k}]"
+    common = dict(route="cuda", source=K3_SOURCE, replaces=K3_REPLACES, launches=launches)
+    return [
+        dict(name=f"{name} one 2048-query block", **common, max_abs_err=err, ms=rec["ms"],
+             plain_ms=rec["plain_ms"], bound_ms=rec["bound_ms"], bound_by=rec["bound_by"],
+             library_ms=rec["library_ms"]),
+        dict(name=f"{name} whole batch ({len(blocks)} launches)", **common,
+             max_abs_err=err_all, ms=all_ms, plain_ms=plain_all_ms, bound_ms=bound_all,
+             bound_by="operations" if t_ops >= t_bytes else "bytes", library_ms=lib_all_ms,
+             xla_scan_ms=xla_all_ms, streamed_bound_ms=1e3 * streamed / PEAK_BYTES),
+    ]
+
+
+def phase_capacity(dev, idx, run, batch=65536, k=10):
+    """Capacity mode (store_f32=False, blocked, K1) in bf16 and int8 against
+    the store_f32 engine of the same dtype in this run."""
+    from lira_tpu_torch.engine.screen import union_groupmin
+    from lira_tpu_torch.engine.serve import QueryEngine
+
+    x_d, x_q, km, layout, scaler, mlp = (idx[key] for key in
+                                         ("x_d", "x_q", "km", "layout", "scaler", "mlp"))
+    thr, gt = run["thr"], run["gt"]
+    for dt in ("bfloat16", "int8"):
+        base = run["results"][dt]
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        eng = QueryEngine(x_d, layout, km.centroids, scaler, mlp, probe_cap=128,
+                          scan_impl="blocked", block_q=1024, scan_dtype=dt, store_f32=False,
+                          block_margin=base["margin"], device=dev)
+        st = eng._block_state
+        table = st.corpus_flat.numel() * st.corpus_flat.element_size()
+        f32_table = st.corpus_flat.numel() * 4
+        if st.corpus_flat_f32 is not st.corpus_flat:
+            raise AssertionError(f"capacity[{dt}]: a second corpus table exists")
+        log(f"engine[capacity {dt}] built: {time.perf_counter() - t0:.1f}s; device table "
+            f"{table / 2**30:.3f} GiB = {table / f32_table:.2f}x the padded f32 table "
+            f"({f32_table / 2**30:.3f} GiB)")
+        union_groupmin.launches = 0
+        r = eng.search(x_q, thr, k)
+        launches = union_groupmin.launches
+        peak = torch.cuda.max_memory_allocated()
+        if launches <= 0:
+            raise AssertionError(f"capacity[{dt}] did not launch K1")
+        r_b = base["r"]
+        if not (np.array_equal(r.nprobe, r_b.nprobe) and np.array_equal(r.ndis, r_b.ndis)):
+            raise AssertionError(f"capacity[{dt}]: nprobe/ndis differ from store_f32's")
+        recall = recall_at(r.ids, gt)
+        differ = int((np.sort(r.ids, axis=1) != np.sort(r_b.ids, axis=1)).any(axis=1).sum())
+        log(f"serve[capacity {dt}]: K1 launches {launches}, nprobe={r.nprobe.mean():.2f} "
+            f"ndis={r.ndis.mean():.0f} (equal to store_f32) recall@{k}={recall:.4f} "
+            f"(store_f32 {base['recall']:.4f}); {differ} of {batch} queries with other "
+            f"neighbour sets; search {batch / r.elapsed:.0f} QPS ({r.elapsed:.3f}s); peak "
+            f"device memory {peak / 2**30:.2f} GiB (store_f32 {base['peak'] / 2**30:.2f} GiB)")
+        if recall < base["recall"] - CAPACITY_RECALL_DROP:
+            raise AssertionError(f"capacity[{dt}] recall {recall} more than "
+                                 f"{CAPACITY_RECALL_DROP} below store_f32's {base['recall']}")
+        del eng, st
+        torch.cuda.empty_cache()
+
+
+def phase_ivf(dev, idx, run, k=10, m=8):
+    """The IVF baseline on the same layout: prober=ivf_probe_matrix on the
+    blocked f32 engine at threshold 1 − (m − 0.5)/n_bkt, so every query
+    probes its m nearest centroids' buckets — the paper's comparison at
+    LIRA's nprobe."""
+    from lira_tpu_torch.engine.ivf_baseline import ivf_probe_matrix
+    from lira_tpu_torch.engine.serve import QueryEngine
+
+    x_d, x_q, km, layout, scaler, mlp = (idx[key] for key in
+                                         ("x_d", "x_q", "km", "layout", "scaler", "mlp"))
+    base = run["results"]["float32"]
+    cent = np.asarray(km.centroids, np.float32)
+    eng = QueryEngine(x_d, layout, cent, scaler, mlp, scan_impl="blocked", block_q=1024,
+                      block_margin=base["margin"], device=dev,
+                      prober=lambda q: ivf_probe_matrix(q, cent, device=dev))
+    thr = 1.0 - (m - 0.5) / layout.n_bkt
+    r = eng.search(x_q, thr, k)
+    if not (r.nprobe == m).all():
+        raise AssertionError(f"IVF: nprobe {np.unique(r.nprobe)} != {m}")
+    recall = recall_at(r.ids, run["gt"])
+    log(f"serve[IVF nprobe={m}]: ndis={r.ndis.mean():.0f} recall@{k}={recall:.4f}; LIRA "
+        f"(trained MLP, blocked f32) nprobe={base['r'].nprobe.mean():.2f} "
+        f"ndis={base['r'].ndis.mean():.0f} recall@{k}={base['recall']:.4f}; search "
+        f"{len(x_q) / r.elapsed:.0f} QPS ({r.elapsed:.3f}s)")
+    probed = check_oracle(eng, r, idx, thr, k, f"IVF nprobe={m}", np.random.default_rng(2))
+    cd = ((x_q[: len(probed), None, :].astype(np.float64) - cent[None].astype(np.float64))
+          ** 2).sum(-1)
+    near = np.zeros_like(probed)
+    np.put_along_axis(near, np.argsort(cd, axis=1, kind="stable")[:, :m], True, axis=1)
+    if not np.array_equal(probed, near):
+        raise AssertionError(f"IVF: probed buckets are not the {m} nearest centroids'")
+    log(f"IVF: the probed buckets are the {m} nearest centroids' on {len(probed)} queries")
+    del eng
+    torch.cuda.empty_cache()
 
 
 def phase_smallscale(dev, n=200_000, n_query=2000, d=128, n_bkt=256, k=10, n_epoch=3):
@@ -630,8 +1072,8 @@ def main() -> int:
     log(f"nvidia-smi: {smi}")
 
     t0 = time.perf_counter()
-    built = build(["union_groupmin", "groupmin"])  # one nvcc each, in parallel
-    log(f"built K1 and K2 in {time.perf_counter() - t0:.1f}s")
+    built = build(["union_groupmin", "groupmin", "probed_scan"])  # one nvcc each, in parallel
+    log(f"built K1, K2 and K3 in {time.perf_counter() - t0:.1f}s")
     for name, info in built.items():
         log(f"{name}: {info['seconds']:.1f}s -> {info['path']}")
         log(info["ptxas"])
@@ -641,8 +1083,13 @@ def main() -> int:
     with true_fp32():
         phase_k1_grid(dev)
         phase_k2_grid(dev)
+        phase_k3_grid(dev)
         idx = phase_trained_index(dev)
-        kernels = phase_serving(dev, idx)
+        kernels, run = phase_serving(dev, idx)
+        kernels += phase_per_query(dev, idx, run)
+        phase_capacity(dev, idx, run)
+        phase_ivf(dev, idx, run)
+        del run
         kernels.append(idx.pop("k2"))
         del idx
         phase_smallscale(dev)

@@ -5,8 +5,8 @@ obvious counterpart there.  The package imports torch and numpy only:
 never jax, and never a module of `lira_tpu` (the JAX package is the
 reference the port is tested against, not a dependency).
 
-Layer map of the ported slices (blocked serving; training and the
-small-scale pipeline):
+Layer map of the ported slices (the whole serving engine; training and
+the small-scale pipeline):
 
     pipelines/  run_smallscale (build → train → redundancy → sweeps)
     io/         fvecs/ivecs/bvecs, synthetic corpora (byte-identical to
@@ -17,9 +17,14 @@ small-scale pipeline):
     labels/     kNN → bucket labels, distance-feature standardizer
     models/     probing MLP as an nn.Module, its training loops, metrics
     redundancy/ model-chosen replicas of boundary points
-    engine/     QueryEngine, the blocked scan, the K1 screen kernel,
-                calibration, the per-bucket evaluation scan and sweep
-    csrc/       hand-written CUDA kernels, built with nvcc at first use
+    engine/     QueryEngine with three scan paths: 'blocked' (the K1
+                screen; f32/bf16/int8, and capacity mode: one bf16/int8
+                table, host re-rank), per-query 'xla' (plain torch) and
+                per-query 'pallas' (the K3 probed-tile kernel); a
+                pluggable prober and the IVF baseline; calibration,
+                tuning, the per-bucket evaluation scan and sweep
+    csrc/       hand-written CUDA kernels (K1, K2, K3), built with nvcc at
+                first use
 
 Entry points run on `cuda` unless the caller passes `device="cpu"`.
 """

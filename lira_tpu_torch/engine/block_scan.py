@@ -16,7 +16,12 @@ Per batch:
      neighbours, and un-permuted.
 
 bf16 and int8 screens round or quantize round 1 only; the selection
-margin absorbs that, and round 2 re-ranks in f32 from the f32 table.
+margin absorbs that, and round 2 re-ranks in f32 from the f32 table.  In
+CAPACITY mode (store_f32=False) there is no f32 table: one bf16 or int8
+table serves both rounds (round 2 widens its rows in registers; int8 folds
+the per-dim scale into the query), and the engine re-ranks the
+over-fetched candidates exactly on the host.  A custom prober's host mask
+replaces step 1's MLP (`_prepare_from_mask`).
 ndis counts each query's own probed buckets' true sizes, not the union
 streamed (the union is an execution strategy, not a different search).
 
@@ -95,6 +100,22 @@ def _probe_prepare(mlp, centroids, scaler_mean, scaler_scale,
     return probed, perm, union, nprobe, ndis
 
 
+@torch.no_grad()
+def _prepare_from_mask(probed: torch.Tensor,  # (B_pad, n_bkt) bool, pad rows False
+                       top1: torch.Tensor,  # (B_pad,) int64, n_bkt at pad rows
+                       sizes: torch.Tensor, qb: int, rank: torch.Tensor):
+    """Grouping, unions and counts for an externally supplied probed mask
+    (a custom prober, e.g. the IVF baseline).  The rank table is extended
+    by one entry so that pad rows (top1 == n_bkt) keep sorting last."""
+    B, n_bkt = probed.shape
+    ext = torch.cat([rank, rank.new_full((1,), rank.shape[0])])
+    perm = torch.sort(ext[top1], stable=True).indices
+    union = probed[perm].view(B // qb, qb, n_bkt).any(dim=1)
+    nprobe = probed.sum(dim=1, dtype=torch.int32)
+    ndis = (probed.long() * sizes[None, :]).sum(dim=1)
+    return perm, union, nprobe, ndis
+
+
 # ---------------------------------------------------------------------------
 # phase 3: screen, masked selection, exact rescore
 # ---------------------------------------------------------------------------
@@ -150,7 +171,7 @@ def _screen_rescore(
     ulen: torch.Tensor,  # (n_blocks,) int32 TRUE union supertiles per block
     corpus_flat: torch.Tensor,  # (n_super*S*128, d) round-1 dtype
     bsq: torch.Tensor,  # (n_super*S, 128) f32 norms/penalties
-    corpus_flat_f32: torch.Tensor,  # rescore table (f32)
+    corpus_flat_f32: torch.Tensor,  # rescore table (f32; capacity: = corpus_flat)
     tiles_ids: torch.Tensor,  # (n_super*S, 128) int32 global ids
     tile_pad_count: torch.Tensor,  # (n_super*S,) int32 pad rows per tile
     *,
@@ -164,7 +185,11 @@ def _screen_rescore(
 ):
     """K1 screen + masked group selection + exact f32 rescore over every
     query block.  Returns (neg (B_pad, k_loc), ids (B_pad, k_loc), k_loc) in
-    block (permuted) order.  int8: see `screen_queries`."""
+    block (permuted) order.  int8: see `screen_queries`.  Capacity mode
+    (the rescore table is the bf16/int8 screen table): round 2 widens the
+    gathered rows to f32, and for int8 folds the per-dim scale into the
+    query, x·q = Σ_d s_d·x8_d·q_d = x8·(q·s), so the gather moves the
+    table's own bytes."""
     d = q_perm.shape[1]
     n_blocks, U = supers.shape
     dev = q_perm.device
@@ -180,7 +205,8 @@ def _screen_rescore(
             qb=qb, metric=metric, sel_rows=sel_rows, t_eff=t_eff, s2=s2,
         )
 
-    groups_f32 = corpus_flat_f32.view(-1, sel_rows, d)
+    groups_r2 = corpus_flat_f32.view(-1, sel_rows, d)
+    q_r2 = q_perm * dim_scale[None, :] if corpus_flat_f32.dtype == torch.int8 else q_perm
     bsq_g = bsq.view(-1, sel_rows)
     ids_g = tiles_ids.view(-1, sel_rows)
     # per-tile bucket map → per-group, with ALL-PAD groups masked to -1:
@@ -224,7 +250,7 @@ def _screen_rescore(
         for s in range(0, q_b.shape[0], sub):
             qs, sg, val = q_b[s : s + sub], ggrp[s : s + sub], valid[s : s + sub]
             n = qs.shape[0]
-            vec = groups_f32[sg].view(n, kg_eff * sel_rows, d)  # group-granular gather
+            vec = groups_r2[sg].float().view(n, kg_eff * sel_rows, d)  # group gather
             dot = torch.bmm(vec, qs[:, :, None]).view(n, kg_eff, sel_rows)
             sq = bsq_g[sg]
             score = sq - dot if metric == "inner_product" else sq - 2.0 * dot
@@ -244,7 +270,7 @@ def _screen_rescore(
         "U": U, "n_blocks": n_blocks, "sg": SG, "qb": qb,
     }
 
-    q_blocks = q_perm.view(n_blocks, qb, d)
+    q_blocks = q_r2.view(n_blocks, qb, d)  # round-2 queries (q·s for int8 capacity)
     neg_parts, ids_parts = [], []
     if u_chunk >= U:
         for s in range(0, n_blocks, rows_per_call):
@@ -325,8 +351,9 @@ class BlockScanState:
     """Device-resident round-1/round-2 corpus views for the blocked scan.
 
     Device cost: one f32 corpus copy (round 2), plus a bf16 (int8) copy when
-    scan_dtype is bfloat16 (int8) — 1.0× / 1.5× / 1.25× the padded corpus.
-    All other state (norms, ids, pad counts) is O(rows · 8 B)."""
+    scan_dtype is bfloat16 (int8) — 1.0× / 1.5× / 1.25× the padded corpus;
+    in capacity mode (store_f32=False) the bf16 (int8) table alone — 0.5× /
+    0.25×.  All other state (norms, ids, pad counts) is O(rows · 8 B)."""
 
     @classmethod
     @torch.no_grad()
@@ -339,13 +366,19 @@ class BlockScanState:
         scan_dtype: torch.dtype,
         tile: int = 128,
         chunk_rows: int = 1 << 21,
+        store_f32: bool = True,
         device=None,
     ) -> "BlockScanState":
         """Build the padded table ON THE DEVICE from the raw corpus: the raw
         corpus goes up once in dense chunks, and each chunk's rows are
-        scattered to their (possibly several) padded positions there.  The
-        f32 table is always kept (store_f32=True; capacity mode is not
-        ported)."""
+        scattered to their (possibly several) padded positions there.
+
+        Capacity mode (store_f32=False with bf16/int8) scatters straight
+        into a bf16/int8 table, so device memory stays 0.5×/0.25× the
+        padded corpus through the build (plus one chunk): int8 takes its
+        per-dim scale from one streamed host max-abs pass and quantizes
+        each chunk on the host (a quarter of the upload bytes); the exact
+        f32 L2 norms come from the host rows (`row_sqnorms`)."""
         from .. import resolve_device
 
         dev = resolve_device(device)
@@ -354,26 +387,55 @@ class BlockScanState:
         n, d = x_d.shape
         ids, n_super, _ = _align_ids(padded_ids, len(padded_ids), tile)
         rows_total = n_super * S_TILES * tile
+        capacity = not store_f32 and scan_dtype in (torch.bfloat16, torch.int8)
+        cap_int8 = capacity and scan_dtype == torch.int8
+        dim_scale = None
+        if cap_int8:
+            amax = np.zeros(d, np.float32)
+            for s in range(0, n, chunk_rows):
+                np.maximum(amax, np.abs(x_d[s : s + chunk_rows]).max(axis=0), out=amax)
+            dim_scale = (np.maximum(amax, 1e-30) / 127.0).astype(np.float32)
         order = np.argsort(ids, kind="stable")
         first = np.searchsorted(ids[order], 0, side="left")
         sorted_pos = order[first:].astype(np.int64)  # padded positions by source id
         sorted_src = ids[order][first:].astype(np.int64)
-        out = torch.zeros((rows_total, d), dtype=torch.float32, device=dev)
+        out_dtype = scan_dtype if capacity else torch.float32
+        out = torch.zeros((rows_total, d), dtype=out_dtype, device=dev)
         for s in range(0, n, chunk_rows):
             e = min(s + chunk_rows, n)
             lo = int(np.searchsorted(sorted_src, s, side="left"))
             hi = int(np.searchsorted(sorted_src, e, side="left"))
             if lo == hi:
                 continue
-            vals = torch.as_tensor(np.ascontiguousarray(x_d[s:e], np.float32), device=dev)
+            if cap_int8:
+                chunk = np.clip(np.round(x_d[s:e].astype(np.float32) / dim_scale),
+                                -127, 127).astype(np.int8)
+            else:
+                chunk = np.ascontiguousarray(x_d[s:e], np.float32)
+            vals = torch.as_tensor(chunk, device=dev)
             out[torch.as_tensor(sorted_pos[lo:hi], device=dev)] = vals[
                 torch.as_tensor(sorted_src[lo:hi] - s, device=dev)
-            ]
-        self._finish(out, ids, tile_bucket, metric, scan_dtype, tile, n_super)
+            ].to(out_dtype)
+            del vals
+        norms_rows = None
+        if capacity and metric != "inner_product":
+            # no f32 device copy exists to reduce: one O(n·d) host pass
+            # over the raw corpus, scattered by padded position
+            from ..ops.distance import row_sqnorms
+
+            norms_rows = np.zeros(rows_total, np.float32)
+            norms_rows[sorted_pos] = row_sqnorms(x_d)[sorted_src]
+        self._finish(out, ids, tile_bucket, metric, scan_dtype, tile, n_super,
+                     store_f32=store_f32, norms_rows=norms_rows, dim_scale=dim_scale)
         return self
 
-    def _finish(self, corpus_dev, ids, tile_bucket, metric, scan_dtype, tile, n_super):
+    def _finish(self, corpus_dev, ids, tile_bucket, metric, scan_dtype, tile, n_super,
+                store_f32=True, norms_rows=None, dim_scale=None):
+        """corpus_dev: the padded table on the device — f32, or already
+        bf16/int8 from the capacity build (with its host `norms_rows` and,
+        for int8, its `dim_scale`)."""
         dev = corpus_dev.device
+        self.store_f32 = store_f32 or scan_dtype not in (torch.bfloat16, torch.int8)
         # Pad rows become COPIES of their bucket's last real row: K1 computes
         # row norms from the rows it loads (no per-row penalty operand), so a
         # pad row must score exactly like a real row of its own selection
@@ -393,7 +455,12 @@ class BlockScanState:
             ]
         self.dim_scale = None
         self.corpus_flat_f32 = corpus_dev
-        if scan_dtype == torch.bfloat16:
+        if not self.store_f32:
+            # capacity: ONE bf16/int8 table serves both rounds
+            self.corpus_flat = corpus_dev
+            if scan_dtype == torch.int8:
+                self.dim_scale = torch.as_tensor(dim_scale, dtype=torch.float32, device=dev)
+        elif scan_dtype == torch.bfloat16:
             self.corpus_flat = corpus_dev.to(torch.bfloat16)
         elif scan_dtype == torch.int8:
             # symmetric per-dim quantization x ≈ s_d·x8, on the device
@@ -407,6 +474,8 @@ class BlockScanState:
         self.tiles_ids = torch.as_tensor(ids.reshape(n_super * S_TILES, tile), device=dev)
         if metric == "inner_product":
             sq = torch.zeros(self.tiles_ids.shape, dtype=torch.float32, device=dev)
+        elif norms_rows is not None:
+            sq = torch.as_tensor(norms_rows, device=dev).view(n_super * S_TILES, tile)
         else:
             sq = (corpus_dev * corpus_dev).sum(dim=1).view(n_super * S_TILES, tile)
         self.bsq = torch.where(self.tiles_ids >= 0, sq, _BIG)
@@ -548,11 +617,25 @@ def _probe_batch(state: BlockScanState, engine, queries: np.ndarray, threshold: 
         if use_cache:
             state._q_cache = (B, q_pad, q_dev)
     n_bkt = engine.layout.n_bkt
-    m = min(engine.probe_cap or n_bkt, n_bkt)
-    probed, perm, union, nprobe, ndis = _probe_prepare(
-        engine.mlp, engine.centroids, engine.scaler_mean, engine.scaler_scale, q_dev,
-        engine.sizes_dev, B, float(threshold), m, qb, engine.bucket_rank_dev,
-    )
+    if engine.prober is not None:
+        # pluggable prober (e.g. the IVF centroid-rank baseline): host
+        # outputs → the engine's threshold + argmax-fallback selection
+        outputs = np.asarray(engine.prober(queries))
+        probed_h = np.zeros((B_pad, n_bkt), bool)
+        probed_h[:B] = engine.select_buckets(outputs, threshold)
+        top1 = np.full(B_pad, n_bkt, np.int64)
+        top1[:B] = outputs.argmax(axis=1)
+        probed = torch.as_tensor(probed_h, device=dev)
+        perm, union, nprobe, ndis = _prepare_from_mask(
+            probed, torch.as_tensor(top1, device=dev), engine.sizes_dev, qb,
+            engine.bucket_rank_dev,
+        )
+    else:
+        m = min(engine.probe_cap or n_bkt, n_bkt)
+        probed, perm, union, nprobe, ndis = _probe_prepare(
+            engine.mlp, engine.centroids, engine.scaler_mean, engine.scaler_scale, q_dev,
+            engine.sizes_dev, B, float(threshold), m, qb, engine.bucket_rank_dev,
+        )
     return dict(q=q_dev, probed=probed, perm=perm, union=union, nprobe=nprobe,
                 ndis=ndis, B=B, qb=qb)
 

@@ -193,13 +193,30 @@ def test_margin_calibration_matches(index):
 
 
 def test_unported_paths_raise(index):
-    common = (index["x_d"], t_layout(index["d2b"], index["n_bkt"]), index["centroids"],
-              index["scaler"], index["params_np"])
-    for kw, item in ((dict(scan_impl="xla"), "xla"), (dict(scan_impl="pallas"), "K3"),
-                     (dict(store_f32=False, scan_dtype="bfloat16"), "capacity"),
-                     (dict(prober=lambda q: q), "prober")):
-        with pytest.raises(NotImplementedError, match=item):
-            TorchEngine(*common, device="cpu", **kw)
+    """Every path of lira_tpu's engine is ported; what is left to raise are
+    lira_tpu's own ValueErrors for combinations neither package serves (int8
+    on a per-query path, capacity mode in f32 or on a per-query path), and
+    the port's for K3 on a tile other than 128 (its stacks are per row of a
+    128-row tile; lira_tpu does not check) and an unknown scan_impl."""
+    lay64 = t_layout(index["d2b"], index["n_bkt"], tile=64)
+    lay128 = t_layout(index["d2b"], index["n_bkt"])
+    for kw, match in ((dict(scan_impl="xla", scan_dtype="int8"), "blocked-scan screen mode"),
+                      (dict(scan_impl="pallas", scan_dtype="int8"), "blocked-scan screen mode"),
+                      (dict(store_f32=False), "capacity mode"),
+                      (dict(store_f32=False, scan_dtype="bfloat16", scan_impl="xla"),
+                       "capacity mode"),
+                      (dict(scan_impl="pallas", layout=lay64), "128-row tile"),
+                      (dict(scan_impl="nope"), "scan_impl")):
+        kw = dict(kw)
+        lay = kw.pop("layout", lay128)
+        with pytest.raises(ValueError, match=match):
+            TorchEngine(index["x_d"], lay, index["centroids"], index["scaler"],
+                        index["params_np"], device="cpu", **kw)
+        if match not in ("128-row tile", "scan_impl"):
+            with pytest.raises(ValueError, match=match):
+                JaxEngine(index["x_d"], j_layout(index["d2b"], index["n_bkt"],
+                                                 tile=lay.tile),
+                          index["centroids"], index["scaler"], index["params"], **kw)
 
 
 def test_block_unions_and_plan_helpers_match():

@@ -1,6 +1,6 @@
-"""Tests that need the card (marker `gpu`): K1 and K2 built with nvcc and
-held against their plain versions, and the CUDA engine and the fused kNN
-against the CPU port.
+"""Tests that need the card (marker `gpu`): K1, K2 and K3 built with nvcc
+and held against their plain versions, and the CUDA engines (blocked and
+per-query) and the fused kNN against the CPU port.
 They skip without a CUDA device; on an H100 run
 
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
@@ -12,7 +12,9 @@ Tolerance for K1: |kernel − plain| ≤ 2·d·eps32·(max‖x‖² + 2·max‖x
 (the same exact products summed in another f32 order); int8 inner-product
 scores are exact.  K2 the same for f32 and bf16-rounded inputs; its int8
 minima are exact (both round the integer dot to f32 and apply the same
-two f32 operations).  The engines must agree on nprobe, ndis and
+two f32 operations).  K3 the same bound on its scores, with equal id sets
+(its inputs have no ties but replicated rows, whose ids are equal too).  The
+engines must agree on nprobe, ndis and
 neighbour sets exactly; the fused kNN on ids, except between candidates
 whose f64 distances tie to rtol 1e-6.
 """
@@ -164,3 +166,76 @@ def test_knn_fused_cuda_matches_cpu(cuda, precision):
     if precision == "highest":
         k_g = self_knn_fused(base, 5, precision="highest", device=cuda)
         assert not (k_g == np.arange(len(base))[:, None]).any()
+
+
+@pytest.mark.parametrize("metric", ["L2", "inner_product"])
+@pytest.mark.parametrize("k", [1, 20, 36, 128])
+@pytest.mark.parametrize("d", [37, 128])
+def test_k3_kernel_matches_plain(cuda, d, k, metric):
+    """Ragged lists with −1 holes in the middle, a tile listed twice, a
+    partly padded tile; d = 37 takes the kernel's 4-byte copies."""
+    from lira_tpu_torch.engine.pallas_scan import pallas_probed_scan, probed_scan_ref
+
+    g = torch.Generator().manual_seed(5)
+    n_tiles, B, T = 12, 300, 9
+    corpus = torch.randn(n_tiles, 128, d, generator=g)
+    ids = torch.arange(n_tiles * 128, dtype=torch.int32).view(n_tiles, 128)
+    ids[-1, 90:] = -1
+    sq = (corpus * corpus).sum(-1) if metric == "L2" else torch.zeros(n_tiles, 128)
+    sq[ids < 0] = 3e38
+    tiles = torch.randint(0, n_tiles, (B, T), generator=g, dtype=torch.int32)
+    tiles[torch.rand(B, T, generator=g) < 0.3] = -1
+    tiles[0] = -1  # a query with no tile
+    tiles[1, :2] = 4  # one tile twice
+    q = torch.randn(B, d, generator=g)
+    args = [a.to(cuda) for a in (q, tiles, corpus, ids, sq)]
+    before = pallas_probed_scan.launches
+    s_k, i_k = pallas_probed_scan(*args, k, metric)
+    torch.cuda.synchronize()
+    assert pallas_probed_scan.launches == before + 1
+    s_r, i_r = probed_scan_ref(*args, k, metric)
+    assert bool((i_k[0] == -1).all()) and bool((s_k[0] >= 1e37).all())
+    assert torch.equal(s_k >= 1e37, s_r >= 1e37)
+    live = s_r < 1e37
+    xn = float((corpus * corpus).sum(-1).max())
+    qn = float((q * q).sum(1).max())
+    tol = 2 * d * EPS32 * (xn + 2 * (xn * qn) ** 0.5)
+    assert float((s_k[live] - s_r[live]).abs().max()) <= tol
+    i_k, i_r = i_k.cpu().numpy(), i_r.cpu().numpy()
+    for b in range(B):
+        assert sorted(i_k[b]) == sorted(i_r[b]), b
+
+
+@pytest.mark.parametrize("scan_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("scan_impl", ["xla", "pallas"])
+def test_per_query_cuda_engine_matches_cpu_engine(cuda, scan_impl, scan_dtype):
+    from lira_tpu_torch.engine.pallas_scan import pallas_probed_scan
+    from lira_tpu_torch.engine.serve import QueryEngine
+    from lira_tpu_torch.labels.scaler import scaled_centroid_distances
+    from lira_tpu_torch.models.probing_mlp import ProbingMLP
+    from lira_tpu_torch.partition import build_bucket_layout, kmeans_assign, kmeans_fit
+
+    rng = np.random.default_rng(6)
+    x = rng.normal(size=(6000, 32)).astype(np.float32)
+    xq = rng.normal(size=(300, 32)).astype(np.float32)
+    km = kmeans_fit(x, 16, niter=5, device="cpu")
+    layout = build_bucket_layout(kmeans_assign(x, km.centroids, device="cpu"), 16)
+    _, _, sc = scaled_centroid_distances(x, None, km.centroids, device="cpu")
+    mlp = ProbingMLP(16, 32, generator=torch.Generator().manual_seed(0))
+    kw = dict(scan_impl=scan_impl, scan_dtype=scan_dtype, probe_cap=8)
+    e_cpu = QueryEngine(x, layout, km.centroids, sc, mlp, device="cpu", **kw)
+    e_gpu = QueryEngine(x, layout, km.centroids, sc, mlp, device=cuda, **kw)
+    v = np.unique(e_cpu.probe(xq))
+    j = int(0.7 * (len(v) - 1))
+    while v[j + 1] - v[j] < 1e-5:
+        j += 1
+    thr = float((v[j] + v[j + 1]) / 2)
+    before = pallas_probed_scan.launches
+    r_c, r_g = e_cpu.search(xq, thr, 10), e_gpu.search(xq, thr, 10)
+    assert pallas_probed_scan.launches - before == (1 if scan_impl == "pallas" else 0)
+    np.testing.assert_array_equal(r_c.nprobe, r_g.nprobe)
+    np.testing.assert_array_equal(r_c.ndis, r_g.ndis)
+    for i in range(len(xq)):
+        assert set(r_c.ids[i]) == set(r_g.ids[i]), i
+    r_s = e_gpu.search_stream(np.concatenate([xq, xq]), thr, 10, batch_size=300)
+    np.testing.assert_array_equal(r_s.ids, np.concatenate([r_g.ids, r_g.ids]))

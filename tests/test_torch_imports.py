@@ -1,7 +1,7 @@
 """lira_tpu_torch and chip_smoke.py import neither jax nor lira_tpu: checked
-statically (every import statement) and at run time (a tiny CPU search,
-self-kNN and training epoch in a fresh interpreter leave no jax module
-loaded)."""
+statically (every import statement) and at run time (tiny CPU searches on
+every scan path, capacity mode and the IVF prober, a self-kNN and a
+training epoch in a fresh interpreter leave no jax module loaded)."""
 
 import ast
 import os
@@ -48,6 +48,8 @@ from lira_tpu_torch.ops.knn_pallas import self_knn_fused
 from lira_tpu_torch.models.train import make_train_state, train_epoch
 import lira_tpu_torch.config, lira_tpu_torch.io.cache, lira_tpu_torch.engine.sweep  # noqa: F401
 import lira_tpu_torch.redundancy.assign, lira_tpu_torch.models.metrics  # noqa: F401
+import lira_tpu_torch.engine.tuning  # noqa: F401
+from lira_tpu_torch.engine.ivf_baseline import ivf_probe_matrix
 import chip_smoke  # noqa: F401
 
 rng = np.random.default_rng(0)
@@ -59,6 +61,11 @@ mlp = ProbingMLP(4, 8, generator=torch.Generator().manual_seed(0))
 eng = QueryEngine(x, layout, km.centroids, sc, mlp, scan_dtype="int8", device="cpu")
 r = eng.search(x[:5], 0.5, 3)
 assert r.ids.shape == (5, 3)
+for kw in (dict(scan_impl="xla", scan_dtype="bfloat16"), dict(scan_impl="pallas"),
+           dict(scan_dtype="int8", store_f32=False),
+           dict(prober=lambda q: ivf_probe_matrix(q, km.centroids, device="cpu"))):
+    e = QueryEngine(x, layout, km.centroids, sc, mlp, device="cpu", **kw)
+    assert e.search(x[:5], 0.5, 3).ids.shape == (5, 3), kw
 knn = self_knn_fused(x, 3, precision="int8", device="cpu")
 assert knn.shape == (600, 3)
 st = make_train_state(0, 4, 8, device="cpu")
