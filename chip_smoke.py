@@ -9,9 +9,11 @@ prober), runs the small-scale pipeline, and checks the answers.
 Phases (any failure exits non-zero; nothing is caught and passed over):
   1. the device: name, count, `nvidia-smi` name and power limit;
   2. the kernel build (nvcc, sm_90a, one process per source, in parallel)
-     and what `-Xptxas -v` reports;
+     and what `-Xptxas -v` reports; the warpgroup MMAs (HGMMA, IGMMA) that
+     `cuobjdump -sass` finds in K1's library, each count > 0;
   3. K1 against its plain version on the card: every dtype × metric ×
-     sel_rows at qb=1024, d=128, U=64 with a partly dead union, timed;
+     sel_rows at qb=1024, d=128, U=64, and every dtype × metric at qb=256,
+     d=960, U=16, each with a partly dead union, timed;
   4. K2 against its plain version on the card: f32, bf16-rounded and int8
      × L2 and IP at Q=8192, d=128 over 64 groups, one partly padded, timed;
      K3 against its plain version: k in {1, 20, 36, 128} × L2 and IP at
@@ -59,6 +61,7 @@ from __future__ import annotations
 import copy
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -103,13 +106,17 @@ def time_ms(fn, reps: int = 5) -> float:
 
 
 def k1_measure(q, corpus, supers, ulen, *, qb, metric, sel_rows, t_eff=None, s2=None,
-               reps=5):
+               xsq=None, reps=5):
     """Kernel vs plain version on one input: the kernel's output, the plain
     one's, and the timing/bound record (library_ms: the dominant product
-    alone, torch.matmul or torch._int_mm, over the live slots)."""
-    from lira_tpu_torch.engine.screen import SUPER_ROWS, union_groupmin, union_groupmin_ref
+    alone, torch.matmul or torch._int_mm, over the live slots).  `xsq`: the
+    table's row norms (L2), as the engine passes them; built here if None."""
+    from lira_tpu_torch.engine.screen import (SUPER_ROWS, screen_norms, union_groupmin,
+                                              union_groupmin_ref)
 
-    kw = dict(qb=qb, metric=metric, sel_rows=sel_rows, t_eff=t_eff, s2=s2)
+    if xsq is None and metric != "inner_product":
+        xsq = screen_norms(corpus, s2)
+    kw = dict(qb=qb, metric=metric, sel_rows=sel_rows, t_eff=t_eff, s2=s2, xsq=xsq)
     out = union_groupmin(q, corpus, supers, ulen, **kw)
     ref = union_groupmin_ref(q, corpus, supers, ulen, **kw)
     torch.cuda.synchronize()
@@ -121,7 +128,8 @@ def k1_measure(q, corpus, supers, ulen, *, qb, metric, sel_rows, t_eff=None, s2=
     live = int(ulen.clamp(max=U).sum())
     elt = corpus.element_size()
     ops = 2.0 * live * SUPER_ROWS * qb * d
-    nbytes = q.numel() * elt + live * SUPER_ROWS * d * elt + out.numel() * 4
+    nbytes = (q.numel() * elt + live * SUPER_ROWS * (d * elt + (4 if xsq is not None else 0))
+              + out.numel() * 4)
     t_ops, t_bytes = ops / PEAK_OPS[corpus.dtype], nbytes / PEAK_BYTES
     # the same products one block row at a time (its live rows × its own
     # queries), timed per block and summed: the whole call's operation
@@ -160,39 +168,60 @@ def k1_tolerance(q, corpus, metric, t_eff=None, s2=None) -> float:
 
 
 def phase_k1_grid(dev) -> None:
-    """Every dtype × metric × sel_rows at the bench's qb and d, U=64, with
-    one block row's union cut short (dead slots)."""
+    """Every dtype × metric × sel_rows at the bench's qb and d, U=64, and
+    every dtype × metric at d=960 (GIST; beyond shared memory before d was
+    staged in chunks), each with one block row's union cut short (dead
+    slots)."""
     from lira_tpu_torch.engine.block_scan import screen_queries
 
-    qb, d, U, rows, n_super = 1024, 128, 64, 2, 96
-    g = torch.Generator(device="cpu").manual_seed(7)
-    x = torch.randn(n_super * 1024, d, generator=g).to(dev)
-    qf = torch.randn(rows * qb, d, generator=g).to(dev)
-    supers = torch.randint(0, n_super, (rows, U), generator=g, dtype=torch.int32).to(dev)
-    ulen = torch.tensor([U, 37], dtype=torch.int32, device=dev)
-    dim_scale = torch.clamp_min(x.abs().amax(0), 1e-30) / 127.0
-    x8 = torch.clamp(torch.round(x / dim_scale), -127, 127).to(torch.int8)
-    for dtype in (torch.float32, torch.bfloat16, torch.int8):
-        for metric in ("L2", "inner_product"):
-            for sel_rows in (32, 64, 128):
-                q, t_eff, s2 = screen_queries(qf, dtype, dim_scale, metric)
-                corpus = x8 if dtype == torch.int8 else x.to(dtype)
-                out, ref, rec = k1_measure(q, corpus, supers, ulen, qb=qb, metric=metric,
-                                           sel_rows=sel_rows, t_eff=t_eff, s2=s2)
-                SG = 1024 // sel_rows
-                dead = out[1, 37 * SG:]
-                if not bool((dead == torch.tensor(3e38, dtype=torch.float32)).all()):
-                    raise AssertionError(f"K1 {dtype} {metric} {sel_rows}: dead slots not 3e38")
-                err = float((out - ref).abs().max())
-                tol = k1_tolerance(q, corpus, metric, t_eff, s2)
-                ok = err <= tol
-                log(f"K1 {DTYPE_NAME[dtype]:8s} {metric:13s} sel_rows={sel_rows:3d}: "
-                    f"max|kernel-plain|={err:.3g} (tol {tol:.3g}) "
-                    f"{rec['ms']:.3f} ms, plain {rec['plain_ms']:.3f} ms, "
-                    f"bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}), "
-                    f"library {rec['library_ms']:.3f} ms, {rec['live_slots']} live slots")
-                if not ok:
-                    raise AssertionError(f"K1 {dtype} {metric} {sel_rows}: {err} > {tol}")
+    cases = [  # qb, d, U, rows, n_super, live slots of block row 1, sel_rows
+        (1024, 128, 64, 2, 96, 37, (32, 64, 128)),
+        (256, 960, 16, 2, 16, 7, (32,)),
+    ]
+    for qb, d, U, rows, n_super, live1, sels in cases:
+        g = torch.Generator(device="cpu").manual_seed(7)
+        x = torch.randn(n_super * 1024, d, generator=g).to(dev)
+        qf = torch.randn(rows * qb, d, generator=g).to(dev)
+        supers = torch.randint(0, n_super, (rows, U), generator=g, dtype=torch.int32).to(dev)
+        ulen = torch.tensor([U, live1], dtype=torch.int32, device=dev)
+        dim_scale = torch.clamp_min(x.abs().amax(0), 1e-30) / 127.0
+        x8 = torch.clamp(torch.round(x / dim_scale), -127, 127).to(torch.int8)
+        for dtype in (torch.float32, torch.bfloat16, torch.int8):
+            for metric in ("L2", "inner_product"):
+                for sel_rows in sels:
+                    q, t_eff, s2 = screen_queries(qf, dtype, dim_scale, metric)
+                    corpus = x8 if dtype == torch.int8 else x.to(dtype)
+                    out, ref, rec = k1_measure(q, corpus, supers, ulen, qb=qb, metric=metric,
+                                               sel_rows=sel_rows, t_eff=t_eff, s2=s2)
+                    tag = f"K1 d={d} {DTYPE_NAME[dtype]} {metric} sel_rows={sel_rows}"
+                    dead = out[1, live1 * (1024 // sel_rows):]
+                    if not bool((dead == torch.tensor(3e38, dtype=torch.float32)).all()):
+                        raise AssertionError(f"{tag}: dead slots not 3e38")
+                    err = float((out - ref).abs().max())
+                    tol = k1_tolerance(q, corpus, metric, t_eff, s2)
+                    log(f"K1 d={d:4d} {DTYPE_NAME[dtype]:8s} {metric:13s} sel_rows={sel_rows:3d}: "
+                        f"max|kernel-plain|={err:.3g} (tol {tol:.3g}) "
+                        f"{rec['ms']:.3f} ms, plain {rec['plain_ms']:.3f} ms, "
+                        f"bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}), "
+                        f"library {rec['library_ms']:.3f} ms, {rec['live_slots']} live slots")
+                    if err > tol:
+                        raise AssertionError(f"{tag}: {err} > {tol}")
+
+
+def k1_tensor_core_check(lib_path) -> None:
+    """Warpgroup MMA instructions in the built K1 library's SASS
+    (`cuobjdump -sass`): HGMMA (bf16) and IGMMA (int8).  Fails if either
+    count is 0 — the bf16 and int8 screens must run on the tensor cores."""
+    from lira_tpu_torch.kernels import _nvcc
+
+    cuobjdump = os.path.join(os.path.dirname(_nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", lib_path], capture_output=True, text=True,
+                          check=True).stdout
+    ops = re.findall(r"\b[A-Z]*GMMA\.[\w.]+", sass)
+    counts = {m: sum(1 for o in ops if o.startswith(m + ".")) for m in ("HGMMA", "IGMMA")}
+    log(f"K1 SASS warpgroup MMAs: {counts}; forms {sorted(set(ops))}")
+    if not all(counts.values()):
+        raise AssertionError(f"K1's library lacks warpgroup MMAs: {counts}")
 
 
 def profile_device(fn, tag) -> None:
@@ -597,7 +626,7 @@ def k1_main_path_inputs(eng, x_q, thr):
                                      st.dim_scale, eng.metric)
     dev = st.device
     return (q.contiguous(), st.corpus_flat, torch.as_tensor(supers, device=dev),
-            torch.as_tensor(ulen, device=dev), h["qb"], t_eff, s2)
+            torch.as_tensor(ulen, device=dev), h["qb"], t_eff, s2, st.screen_sq)
 
 
 def check_oracle(eng, r, idx, thr, k, tag, rng, n_chk=256, n=64):
@@ -697,10 +726,10 @@ def phase_serving(dev, idx, batch=65536, n_gt=4096, k=10):
                                           peak=peak)
 
         profile_device(lambda: eng.search(x_q, thr, k), scan_dtype)
-        q, corpus, supers, ulen, qb, t_eff, s2 = k1_main_path_inputs(eng, x_q, thr)
+        q, corpus, supers, ulen, qb, t_eff, s2, xsq = k1_main_path_inputs(eng, x_q, thr)
         sel = eng.block_sel_rows
         out, ref, rec = k1_measure(q, corpus, supers, ulen, qb=qb, metric=eng.metric,
-                                   sel_rows=sel, t_eff=t_eff, s2=s2, reps=3)
+                                   sel_rows=sel, t_eff=t_eff, s2=s2, xsq=xsq, reps=3)
         err = float((out - ref).abs().max())
         tol = k1_tolerance(q, corpus, eng.metric, t_eff, s2)
         log(f"K1 at the main path's shape [{scan_dtype}]: blocks {supers.shape[0]}, "
@@ -1077,6 +1106,7 @@ def main() -> int:
     for name, info in built.items():
         log(f"{name}: {info['seconds']:.1f}s -> {info['path']}")
         log(info["ptxas"])
+    k1_tensor_core_check(built["union_groupmin"]["path"])
 
     # the script's own f32 products (the brute-force checks, the library
     # yardsticks, the tolerances) in true fp32, as the port's f32 paths are

@@ -6,287 +6,586 @@
 // (8 tiles of 128 rows) against the block's qb queries and keeps the min
 // over each sel_rows-row group:
 //
-//   L2:  score = ||x||^2 - 2 x.q    (||x||^2 from the rows as loaded)
+//   L2:  score = ||x||^2 - 2 x.q
 //   IP:  score = -x.q
 //   int8: the int32 dot d8 = x8.q8 is exact; score = -t * d8 (t already
 //        doubled by the caller for L2), plus ||x||^2 = sum_d s2_d * x8_d^2.
 //
+// ||x||^2 comes in as a per-row vector `xsq` (built once with the index,
+// from the rows as stored), so no mode spends CUDA-core time on norms.
 // Slots with u >= ulen[i] are padding: they load nothing and write 3e38.
 // Output layout is lira_tpu's: out[i][u*SG + g][q], SG = 1024 / sel_rows.
 //
-// What bounds it on an H100.  One live slot at the bench shape (qb = 1024,
-// d = 128) does 2*1024*1024*128 = 268 M operations and moves 128-512 KB of
-// corpus rows (int8..f32) plus 32*1024*4 = 128 KB of group mins: ~500-2000
-// operations per byte, so it is compute-bound in every dtype.  The f32
-// screen may not use TF32 (the reference is precision="highest"), so its
-// ceiling is the 67 TFLOP/s of plain FP32 FMAs; bf16's would be 989 and
-// int8's 1979 TOP/s on the tensor cores.
+// What bounds it on an H100.  One live slot at the serving shape (qb =
+// 1024, d = 128) does 2*1024*1024*128 = 268 M operations and moves
+// 128-512 KB of corpus rows (int8..f32) plus 128 KB of group mins: ~500-2000
+// operations per byte, so every mode is bound by operations.  On the
+// trained 1M x 128 index a 65536-query batch has 46,914 live slots,
+// 12.6 T operations: 12.7 ms at the 989 TFLOP/s of bf16 tensor cores,
+// 6.4 ms at the 1,979 TOP/s of int8, 188 ms at the 67 TFLOP/s of f32
+// FMAs (the f32 screen may not use TF32: the reference is "highest").
 //
-// The design is the simple, correct first version: a shared-memory tiled
-// product with no tensor cores.  A block owns (i, u, 64 queries) and
-// walks the supertile in 16 row tiles of 64 rows; each tile and the query
-// tile are staged in shared memory (bf16 widened to f32 exactly on the
-// way in, int8 kept packed four to a word), each thread accumulates a 4x4
-// patch (FP32 FMAs; __dp4a into int32 for int8), and a per-column running
-// min per group lives in shared memory across tiles.  Every sel_rows that
-// is a multiple of 32 (32, 64, 128) keeps each thread's 4 rows inside one
-// group.  wgmma/TMA pipelining for the bf16/int8 tensor-core rates is
-// later work.
+// The design.
+// * bf16 and int8 run on the tensor cores (wgmma, sm_90a).  The queries
+//   are wgmma's A (M) and the corpus rows its B (N), both K-major as they
+//   lie in memory (d contiguous; the 8-bit wgmma requires it).  A CTA of
+//   two warpgroups computes a 128-query x 256-row tile: each warpgroup one
+//   m64n256 product (k16 bf16, k32 int8), accumulated over d in steps of
+//   128 bytes a row, the width of the 128-byte swizzle.
+// * A 4-stage ring in shared memory (49 KB a stage) runs two steps ahead
+//   of the tensor cores, across tile and slot boundaries.  Thread 0 fills
+//   a stage with two TMA boxes (cp.async.bulk.tensor, 2D byte maps over
+//   the queries and the corpus, encoded on the host through the driver
+//   entry point; zero past d and past the last query row) and one bulk
+//   copy of the 256 rows' norms, all completing on the stage's mbarrier.
+//   Rows that TMA cannot address (not a multiple of 16 bytes, or narrower
+//   than 128) are copied byte by byte by every thread into the same layout.
+// * CTAs are persistent (one per SM), walking the (block, slot, query
+//   tile) items with the query tile fastest, so the CTAs in flight share a
+//   few supertiles in L2.  Dead slots only write 3e38.
+// * The epilogue stays in registers: a sel_rows group is a run of
+//   accumulator columns, so its min is the thread's own columns plus a
+//   quad shuffle (__shfl_xor 1, 2); only (SG, qb) f32 leaves the SM, in
+//   full 32-byte sectors.  The 1024 x qb score block never exists.
+// * What it leaves on the table: the two warpgroups run in lock step, so
+//   each tile's MMAs drain (wgmma.wait_group 0) before its epilogue and
+//   the tensor cores idle through it; ptxas also waits out each d step's
+//   MMAs before the next (C7517), which costs bf16's second step.
+// * f32 stays on CUDA-core FMAs (no TF32): a shared-memory tiled product,
+//   d staged in chunks of 128 so shared memory no longer grows with d.
 
-#include <cuda_bf16.h>
+#include <cuda.h>  // CUtensorMap and its enums (the encoder is fetched at run time)
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
-constexpr int S_ROWS = 1024;           // rows per supertile
-constexpr int BM = 64;                 // corpus rows per row tile
-constexpr int BN = 64;                 // queries per block
-constexpr int PAD = 4;                 // keeps float4 alignment, spreads banks
-constexpr int NT = 256;                // 16 row-threads x 16 query-threads
-constexpr int MAX_SG = S_ROWS / 32;    // groups per supertile at sel_rows = 32
+constexpr int S_ROWS = 1024;  // rows per supertile
 constexpr float BIG = 3e38f;
 
-__device__ __forceinline__ float widen(float x) { return x; }
-__device__ __forceinline__ float widen(__nv_bfloat16 x) { return __bfloat162float(x); }
+// ---------------------------------------------------------------------------
+// f32: CUDA-core FMAs
+// ---------------------------------------------------------------------------
 
-__device__ __forceinline__ bool dead_slot(const int* ulen, float* out_blk, int i,
-                                          int u, int qb, int c0, int SG) {
-  if (u < ulen[i]) return false;
-  for (int e = threadIdx.x; e < SG * BN; e += NT) {
-    const int g = e / BN, c = e % BN;
-    if (c0 + c < qb) out_blk[(size_t)g * qb + c0 + c] = BIG;
-  }
-  return true;
-}
+constexpr int BM = 64;               // corpus rows per row tile
+constexpr int BN = 64;               // queries per block
+constexpr int PAD = 4;               // keeps float4 alignment, spreads banks
+constexpr int NT = 256;              // 16 row-threads x 16 query-threads
+constexpr int DK = 128;              // d staged per chunk
+constexpr int MAX_SG = S_ROWS / 32;  // groups per supertile at sel_rows = 32
 
-// fold the 16 row-threads' 4-row minima of one tile into the group mins
-__device__ __forceinline__ void fold_tile(float (*red)[BN], float (*gm)[BN], int rt,
-                                          int sel_rows) {
-  const int c = threadIdx.x;
-  if (c < BN) {
-#pragma unroll
-    for (int t = 0; t < 16; ++t) {
-      const int g = (rt * BM + t * 4) / sel_rows;
-      gm[g][c] = fminf(gm[g][c], red[t][c]);
-    }
-  }
-}
+struct F32Smem {
+  float xs[DK][BM + PAD];
+  float qs[DK][BN + PAD];
+  float red[16][BN];
+  float gm[MAX_SG][BN];
+  float xn[BM];
+};
 
-__device__ __forceinline__ void write_mins(float (*gm)[BN], float* out_blk, int qb,
-                                           int c0, int SG) {
-  for (int e = threadIdx.x; e < SG * BN; e += NT) {
-    const int g = e / BN, c = e % BN;
-    if (c0 + c < qb) out_blk[(size_t)g * qb + c0 + c] = gm[g][c];
-  }
-}
-
-// f32 and bf16: scores in f32 from f32 FMAs (bf16 values widen exactly)
-template <typename T>
 __global__ void __launch_bounds__(NT)
-groupmin_float(const T* __restrict__ q, const T* __restrict__ corpus,
-               const int* __restrict__ supers, const int* __restrict__ ulen,
-               float* __restrict__ out, int U, int qb, int d, int sel_rows, int l2) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* Xs = reinterpret_cast<float*>(smem);           // [d][BM + PAD]
-  float* Qs = Xs + (size_t)d * (BM + PAD);              // [d][BN + PAD]
-  float(*red)[BN] = reinterpret_cast<float(*)[BN]>(Qs + (size_t)d * (BN + PAD));
-  float(*gm)[BN] = red + 16;                            // [MAX_SG][BN]
-  float* xn = reinterpret_cast<float*>(gm + MAX_SG);    // [BM]
-
+groupmin_f32(const float* __restrict__ q, const float* __restrict__ corpus,
+             const int* __restrict__ supers, const int* __restrict__ ulen,
+             const float* __restrict__ xsq, float* __restrict__ out, int U, int qb, int d,
+             int sel_rows, int l2) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  F32Smem& sm = *reinterpret_cast<F32Smem*>(smem_raw);
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
   const int c0 = blockIdx.x * BN, u = blockIdx.y, i = blockIdx.z;
   const int SG = S_ROWS / sel_rows;
   float* out_blk = out + ((size_t)i * U + u) * SG * qb;
-  if (dead_slot(ulen, out_blk, i, u, qb, c0, SG)) return;
-
-  for (int e = tid; e < BN * d; e += NT) {
-    const int c = e / d, k = e % d;
-    Qs[k * (BN + PAD) + c] =
-        (c0 + c < qb) ? widen(q[((size_t)i * qb + c0 + c) * d + k]) : 0.0f;
+  if (u >= ulen[i]) {
+    for (int e = tid; e < SG * BN; e += NT) {
+      const int g = e / BN, c = e % BN;
+      if (c0 + c < qb) out_blk[(size_t)g * qb + c0 + c] = BIG;
+    }
+    return;
   }
-  for (int e = tid; e < MAX_SG * BN; e += NT) gm[e / BN][e % BN] = INFINITY;
+  const int nk = (d + DK - 1) / DK;
+  auto load_q = [&](int k0, int kw) {
+    for (int e = tid; e < BN * kw; e += NT) {
+      const int c = e / kw, k = e % kw;
+      sm.qs[k][c] = (c0 + c < qb) ? q[((size_t)i * qb + c0 + c) * d + k0 + k] : 0.0f;
+    }
+  };
+  if (nk == 1) load_q(0, d);  // the whole query tile stays resident
+  for (int e = tid; e < MAX_SG * BN; e += NT) sm.gm[e / BN][e % BN] = INFINITY;
 
   const size_t row0 = (size_t)supers[(size_t)i * U + u] * S_ROWS;
   for (int rt = 0; rt < S_ROWS / BM; ++rt) {
-    __syncthreads();  // previous tile's Xs/red reads are done
-    const T* src = corpus + (row0 + (size_t)rt * BM) * d;
-    for (int e = tid; e < BM * d; e += NT) {
-      const int r = e / d, k = e % d;
-      Xs[k * (BM + PAD) + r] = widen(src[e]);
-    }
-    __syncthreads();
-    if (l2) {  // ||x||^2 of the loaded rows: 4 threads per row
-      const int r = tid / 4, part = tid % 4;
-      float s = 0.0f;
-      for (int k = part; k < d; k += 4) {
-        const float v = Xs[k * (BM + PAD) + r];
-        s = fmaf(v, v, s);
-      }
-      s += __shfl_xor_sync(0xffffffffu, s, 1);
-      s += __shfl_xor_sync(0xffffffffu, s, 2);
-      if (part == 0) xn[r] = s;
-    }
+    const float* src = corpus + (row0 + (size_t)rt * BM) * d;
     float acc[4][4] = {};
-    for (int k = 0; k < d; ++k) {
-      const float4 a = *reinterpret_cast<const float4*>(&Xs[k * (BM + PAD) + ty * 4]);
-      const float4 b = *reinterpret_cast<const float4*>(&Qs[k * (BN + PAD) + tx * 4]);
-      const float av[4] = {a.x, a.y, a.z, a.w}, bv[4] = {b.x, b.y, b.z, b.w};
+    for (int kc = 0; kc < nk; ++kc) {
+      const int k0 = kc * DK, kw = min(DK, d - k0);
+      __syncthreads();  // the previous chunk's (and tile's) reads are done
+      if (nk > 1) load_q(k0, kw);
+      for (int e = tid; e < BM * kw; e += NT) {
+        const int r = e / kw, k = e % kw;
+        sm.xs[k][r] = src[(size_t)r * d + k0 + k];
+      }
+      if (kc == 0 && l2 && tid < BM) sm.xn[tid] = xsq[row0 + (size_t)rt * BM + tid];
+      __syncthreads();
+      for (int k = 0; k < kw; ++k) {
+        const float4 a = *reinterpret_cast<const float4*>(&sm.xs[k][ty * 4]);
+        const float4 b = *reinterpret_cast<const float4*>(&sm.qs[k][tx * 4]);
+        const float av[4] = {a.x, a.y, a.z, a.w}, bv[4] = {b.x, b.y, b.z, b.w};
 #pragma unroll
-      for (int m = 0; m < 4; ++m)
+        for (int m = 0; m < 4; ++m)
 #pragma unroll
-        for (int n = 0; n < 4; ++n) acc[m][n] = fmaf(av[m], bv[n], acc[m][n]);
+          for (int n = 0; n < 4; ++n) acc[m][n] = fmaf(av[m], bv[n], acc[m][n]);
+      }
     }
-    __syncthreads();  // xn written
 #pragma unroll
     for (int n = 0; n < 4; ++n) {
       float mn = INFINITY;
 #pragma unroll
       for (int m = 0; m < 4; ++m) {
-        const float v = l2 ? xn[ty * 4 + m] - 2.0f * acc[m][n] : -acc[m][n];
+        const float v = l2 ? sm.xn[ty * 4 + m] - 2.0f * acc[m][n] : -acc[m][n];
         mn = fminf(mn, v);
       }
-      red[ty][tx * 4 + n] = mn;
+      sm.red[ty][tx * 4 + n] = mn;
     }
     __syncthreads();
-    fold_tile(red, gm, rt, sel_rows);
+    if (tid < BN) {  // fold the 16 row-threads' 4-row minima into the group mins
+#pragma unroll
+      for (int t = 0; t < 16; ++t) {
+        const int g = (rt * BM + t * 4) / sel_rows;
+        sm.gm[g][tid] = fminf(sm.gm[g][tid], sm.red[t][tid]);
+      }
+    }
   }
   __syncthreads();
-  write_mins(gm, out_blk, qb, c0, SG);
+  for (int e = tid; e < SG * BN; e += NT) {
+    const int g = e / BN, c = e % BN;
+    if (c0 + c < qb) out_blk[(size_t)g * qb + c0 + c] = sm.gm[g][c];
+  }
 }
 
-// int8: exact int32 dot through __dp4a on words of four int8 values
-__global__ void __launch_bounds__(NT)
-groupmin_int8(const int8_t* __restrict__ q, const int8_t* __restrict__ corpus,
-              const int* __restrict__ supers, const int* __restrict__ ulen,
-              const float* __restrict__ t_eff, const float* __restrict__ s2,
-              float* __restrict__ out, int U, int qb, int d, int sel_rows, int l2) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int d4 = d / 4;
-  int* Xw = reinterpret_cast<int*>(smem);                  // [d4][BM + PAD]
-  int* Qw = Xw + (size_t)d4 * (BM + PAD);                  // [d4][BN + PAD]
-  float(*red)[BN] = reinterpret_cast<float(*)[BN]>(Qw + (size_t)d4 * (BN + PAD));
-  float(*gm)[BN] = red + 16;
-  float* xn = reinterpret_cast<float*>(gm + MAX_SG);       // [BM]
-  float* s2s = xn + BM;                                    // [d]
+// ---------------------------------------------------------------------------
+// bf16 and int8: wgmma on the tensor cores
+// ---------------------------------------------------------------------------
 
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const int c0 = blockIdx.x * BN, u = blockIdx.y, i = blockIdx.z;
-  const int SG = S_ROWS / sel_rows;
-  float* out_blk = out + ((size_t)i * U + u) * SG * qb;
-  if (dead_slot(ulen, out_blk, i, u, qb, c0, SG)) return;
+constexpr int WM = 128;            // queries per tile: two warpgroups of m64
+constexpr int WN = 256;            // corpus rows per tile: one n256 wgmma
+constexpr int KB = 128;            // bytes of d per stage (the swizzle row)
+constexpr int STAGES = 4;          // ring depth
+constexpr int DIST = STAGES - 2;   // steps loaded ahead of the tensor cores
+constexpr int WT = 256;            // threads: two consumer warpgroups
+constexpr int N_CHUNKS = S_ROWS / WN;
 
-  const int* qw = reinterpret_cast<const int*>(q);
-  for (int e = tid; e < BN * d4; e += NT) {
-    const int c = e / d4, k = e % d4;
-    Qw[k * (BN + PAD) + c] = (c0 + c < qb) ? qw[((size_t)i * qb + c0 + c) * d4 + k] : 0;
+struct __align__(1024) Stage {
+  uint8_t a[WM * KB];  // queries, 128 rows x 128 B, 128-byte swizzle
+  uint8_t b[WN * KB];  // corpus rows, 256 rows x 128 B, 128-byte swizzle
+  float xn[WN];        // ||x||^2 of the 256 rows (loaded with the last d stage)
+};
+constexpr int STAGE_TX = (WM + WN) * KB;  // TMA bytes of a stage, norms aside
+// the ring, its "full" mbarriers, alignment slack
+constexpr size_t WG_SMEM = STAGES * sizeof(Stage) + STAGES * sizeof(uint64_t) + 1024;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// wgmma descriptor of a K-major operand in the 128-byte swizzle: rows of
+// 128 B, 8-row core groups 1024 B apart (SBO); LBO is unused for swizzled
+// K-major layouts.  The tile base is 1024-aligned; advancing k by 32 bytes
+// adds 2 to the start address (the swizzle acts on the absolute address).
+__device__ __forceinline__ uint64_t sw128_desc(const void* tile) {
+  const uint32_t addr = smem_u32(tile);
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
+// byte offset of 16-byte chunk c of row r in a 128-byte-swizzled tile
+__device__ __forceinline__ int swz(int r, int c) { return r * KB + ((c ^ (r & 7)) << 4); }
+
+// one 16-byte chunk, byte by byte, zero past `nbytes` (rows that are not
+// 16-byte aligned, which TMA cannot address)
+__device__ __forceinline__ void copy16(uint8_t* dst, const uint8_t* src, int nbytes) {
+  uint32_t w[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+  for (int b = 0; b < 16; ++b)
+    if (b < nbytes) w[b >> 2] |= (uint32_t)__ldg(src + b) << (8 * (b & 3));
+  *reinterpret_cast<uint4*>(dst) = make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+// 2D TMA load of one box into shared memory, completing on mbarrier `bar`
+__device__ __forceinline__ void tma_2d(void* dst, const CUtensorMap* map, int x, int y,
+                                       uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(x), "r"(y), "r"(bar)
+      : "memory");
+}
+
+// wait for the phase of parity `parity` of mbarrier `bar`; a copy that never
+// lands traps (a launch error) instead of hanging the card
+__device__ __forceinline__ void wait_full(uint32_t bar, uint32_t parity) {
+  for (long long spins = 0;; ++spins) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (spins > (1LL << 26)) __trap();
   }
-  for (int e = tid; e < MAX_SG * BN; e += NT) gm[e / BN][e % BN] = INFINITY;
-  if (l2)
-    for (int k = tid; k < d; k += NT) s2s[k] = s2[k];
-  const float t = *t_eff;
+}
 
-  const size_t row0 = (size_t)supers[(size_t)i * U + u] * S_ROWS;
-  for (int rt = 0; rt < S_ROWS / BM; ++rt) {
-    __syncthreads();
-    const int* src = reinterpret_cast<const int*>(corpus + (row0 + (size_t)rt * BM) * d);
-    for (int e = tid; e < BM * d4; e += NT) {
-      const int r = e / d4, k = e % d4;
-      Xw[k * (BM + PAD) + r] = src[e];
+#define WG_D128                                                                        \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "             \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "              \
+  "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "              \
+  "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "              \
+  "%58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, "              \
+  "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, "              \
+  "%86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, "              \
+  "%100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "            \
+  "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, "            \
+  "%124, %125, %126, %127}"
+#define WG_R1(C, i) C(d[i])
+#define WG_R8(C, i)                                                                    \
+  WG_R1(C, i), WG_R1(C, i + 1), WG_R1(C, i + 2), WG_R1(C, i + 3), WG_R1(C, i + 4),     \
+      WG_R1(C, i + 5), WG_R1(C, i + 6), WG_R1(C, i + 7)
+#define WG_R128(C)                                                                     \
+  WG_R8(C, 0), WG_R8(C, 8), WG_R8(C, 16), WG_R8(C, 24), WG_R8(C, 32), WG_R8(C, 40),    \
+      WG_R8(C, 48), WG_R8(C, 56), WG_R8(C, 64), WG_R8(C, 72), WG_R8(C, 80),           \
+      WG_R8(C, 88), WG_R8(C, 96), WG_R8(C, 104), WG_R8(C, 112), WG_R8(C, 120)
+#define WG_F(x) "+f"(x)
+#define WG_I(x) "+r"(x)
+
+// D(64x256 f32) (+)= A(64x16 bf16) * B(256x16 bf16)^T, both K-major
+__device__ __forceinline__ void wgmma_k(float (&d)[128], uint64_t da, uint64_t db,
+                                        int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 " WG_D128
+      ", %128, %129, p, 1, 1, 0, 0;\n}\n"
+      : WG_R128(WG_F)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// D(64x256 s32) (+)= A(64x32 s8) * B(256x32 s8)^T, both K-major
+__device__ __forceinline__ void wgmma_k(int (&d)[128], uint64_t da, uint64_t db,
+                                        int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8 " WG_D128
+      ", %128, %129, p;\n}\n"
+      : WG_R128(WG_I)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// keep the compiler from moving accumulator reads across the async MMAs
+__device__ __forceinline__ void fence_acc(float (&d)[128]) {
+#pragma unroll
+  for (int j = 0; j < 128; ++j) asm volatile("" : "+f"(d[j])::"memory");
+}
+__device__ __forceinline__ void fence_acc(int (&d)[128]) {
+#pragma unroll
+  for (int j = 0; j < 128; ++j) asm volatile("" : "+r"(d[j])::"memory");
+}
+
+__device__ __forceinline__ float score(float acc, float xn, float, int l2) {
+  return l2 ? __fmaf_rn(-2.0f, acc, xn) : -acc;  // 2*acc is exact: one rounding
+}
+__device__ __forceinline__ float score(int acc, float xn, float t, int l2) {
+  const float v = __fmul_rn(-t, (float)acc);  // |acc| <= 127^2 d < 2^24: exact
+  return l2 ? __fadd_rn(xn, v) : v;
+}
+
+template <int SEL, bool INT8, bool ALIGNED>
+__global__ void __launch_bounds__(WT, 1)
+groupmin_wgmma(const uint8_t* __restrict__ q, const uint8_t* __restrict__ corpus,
+               const int* __restrict__ supers, const int* __restrict__ ulen,
+               const float* __restrict__ xsq, const float* __restrict__ t_eff,
+               float* __restrict__ out, int U, int qb, int row_bytes, int QT,
+               long long n_items, int l2, const __grid_constant__ CUtensorMap tm_q,
+               const __grid_constant__ CUtensorMap tm_x) {
+  using Acc = typename std::conditional<INT8, int, float>::type;
+  constexpr int SG = S_ROWS / SEL;  // groups per supertile
+  constexpr int NG = WN / SEL;      // groups per 256-row chunk
+  constexpr int CPG = SEL / 8;      // 8-column accumulator blocks per group
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const uint32_t base = smem_u32(smem_raw);
+  Stage* ring = reinterpret_cast<Stage*>(smem_raw + ((1024 - (base & 1023)) & 1023));
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + STAGES);  // TMA completion
+
+  const int tid = threadIdx.x, wg = tid / 128, warp = (tid % 128) / 32, lane = tid % 32;
+  const int nk = (row_bytes + KB - 1) / KB;
+  const long long stride = gridDim.x;
+  auto live = [&](long long it) {
+    const long long slot = it / QT;
+    return (int)(slot % U) < ulen[slot / U];
+  };
+
+  // producer cursor: the next (item, 256-row chunk, d stage) to load, with
+  // the item's row bases decoded once per item
+  long long p_item = blockIdx.x;
+  int p_n = 0, p_kc = 0, p_qvalid = 0;
+  size_t p_row0 = 0, p_qrow0 = 0;
+  auto p_seek = [&]() {
+    while (p_item < n_items && !live(p_item)) p_item += stride;
+    if (p_item < n_items) {
+      const long long slot = p_item / QT;
+      const int qt = (int)(p_item % QT);
+      p_qvalid = min(WM, qb - qt * WM);
+      p_row0 = (size_t)supers[slot] * S_ROWS;
+      p_qrow0 = (size_t)(slot / U) * qb + (size_t)qt * WM;
+    }
+  };
+  p_seek();
+  // ALIGNED: thread 0 loads a stage with two TMA boxes (zero past d and past
+  // the last query row) and one bulk copy of the norms.  Otherwise every
+  // thread copies 16-byte chunks byte by byte (rows not 16-byte aligned).
+  if constexpr (ALIGNED) {
+    if (tid == 0) {
+      for (int st = 0; st < STAGES; ++st)
+        asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_u32(&full[st])));
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
     }
     __syncthreads();
-    if (l2) {  // sum_d s2_d * x8_d^2 in f32: 4 threads per row
-      const int r = tid / 4, part = tid % 4;
-      float s = 0.0f;
-      for (int k = part; k < d4; k += 4) {
-        const int w = Xw[k * (BM + PAD) + r];
+  }
+  // byte path: this thread's 16-byte column, rows tid/8 + 32j, chunk tid%8
+  const int c_r = tid >> 3, c_c = tid & 7, c_off = swz(c_r, c_c);
+  auto issue = [&](int st) {
+    if (p_item >= n_items) return;
+    Stage& s = ring[st];
+    const size_t row0 = p_row0 + (size_t)p_n * WN;
+    const bool norms = l2 && p_kc == nk - 1;
+    if constexpr (ALIGNED) {
+      if (tid == 0) {
+        const uint32_t bar = smem_u32(&full[st]);
+        asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+                     "r"(STAGE_TX + (norms ? WN * 4 : 0))
+                     : "memory");
+        tma_2d(s.a, &tm_q, p_kc * KB, (int)p_qrow0, bar);
+        tma_2d(s.b, &tm_x, p_kc * KB, (int)row0, bar);
+        if (norms)
+          asm volatile(
+              "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+              "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(s.xn)),
+              "l"(xsq + row0), "r"(WN * 4), "r"(bar)
+              : "memory");
+      }
+    } else {
+      const int kb = p_kc * KB + c_c * 16;
+      const int nb = kb < row_bytes ? min(16, row_bytes - kb) : 0;
 #pragma unroll
-        for (int b = 0; b < 4; ++b) {
-          const float v = (float)(int8_t)((w >> (8 * b)) & 0xff);
-          s = fmaf(s2s[4 * k + b], v * v, s);
+      for (int j = 0; j < WM / 32; ++j) {
+        const int r = c_r + 32 * j;
+        const bool ok = nb > 0 && r < p_qvalid;
+        copy16(s.a + c_off + j * 32 * KB, ok ? q + (p_qrow0 + r) * row_bytes + kb : q,
+               ok ? nb : 0);
+      }
+#pragma unroll
+      for (int j = 0; j < WN / 32; ++j) {
+        const int r = c_r + 32 * j;
+        copy16(s.b + c_off + j * 32 * KB,
+               nb > 0 ? corpus + (row0 + r) * row_bytes + kb : corpus, nb);
+      }
+      if (norms && tid < WN / 4)
+        *reinterpret_cast<float4*>(s.xn + 4 * tid) =
+            *reinterpret_cast<const float4*>(xsq + row0 + 4 * tid);
+    }
+    if (++p_kc == nk) {
+      p_kc = 0;
+      if (++p_n == N_CHUNKS) {
+        p_n = 0;
+        p_item += stride;
+        p_seek();
+      }
+    }
+  };
+
+  const float t = INT8 ? *t_eff : 0.0f;
+  Acc d[128];
+#pragma unroll
+  for (int j = 0; j < 128; ++j) d[j] = 0;
+  for (int st = 0; st < DIST; ++st) issue(st);
+
+  // this thread's two query rows of the tile and its column pair
+  const int r0 = wg * 64 + warp * 16 + (lane >> 2), t0 = lane & 3;
+  int step = 0;
+  for (long long it = blockIdx.x; it < n_items; it += stride) {
+    const long long slot = it / QT;
+    const int qt = (int)(it % QT), u = (int)(slot % U), i = (int)(slot / U);
+    float* out_blk = out + (size_t)slot * SG * qb + (size_t)qt * WM;
+    const int q_valid = min(WM, qb - qt * WM);
+    if (u >= ulen[i]) {
+      for (int e = tid; e < SG * WM; e += WT) {
+        const int g = e / WM, c = e % WM;
+        if (c < q_valid) out_blk[(size_t)g * qb + c] = BIG;
+      }
+      continue;
+    }
+    for (int n = 0; n < N_CHUNKS; ++n) {
+      for (int kc = 0; kc < nk; ++kc, ++step) {
+        const int st = step % STAGES;
+        Stage& s = ring[st];
+        if constexpr (ALIGNED)
+          wait_full(smem_u32(&full[st]), (step / STAGES) & 1);
+        else  // the byte copies are generic-proxy writes; wgmma reads via the async proxy
+          asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+        __syncthreads();  // step's data landed; step-2's MMAs are done everywhere
+        const uint64_t da = sw128_desc(s.a + wg * 64 * KB), db = sw128_desc(s.b);
+        asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+        for (int kk = 0; kk < KB / 32; ++kk) wgmma_k(d, da + 2 * kk, db + 2 * kk, kc | kk);
+        asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+        issue((step + DIST) % STAGES);  // the stage of step-2: free; overlaps the MMAs
+        if (kc < nk - 1) {
+          asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+          continue;
         }
+        asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+        fence_acc(d);
+        // epilogue: the group minima of this 256-row chunk, in registers
+#pragma unroll
+        for (int g = 0; g < NG; ++g) {
+          float m0 = INFINITY, m1 = INFINITY;
+#pragma unroll
+          for (int cc = 0; cc < CPG; ++cc) {
+            const int c = g * CPG + cc;
+            const float2 xn = l2 ? *reinterpret_cast<const float2*>(&s.xn[8 * c + 2 * t0])
+                                 : make_float2(0.0f, 0.0f);
+            m0 = fminf(m0, fminf(score(d[4 * c], xn.x, t, l2), score(d[4 * c + 1], xn.y, t, l2)));
+            m1 = fminf(m1, fminf(score(d[4 * c + 2], xn.x, t, l2),
+                                 score(d[4 * c + 3], xn.y, t, l2)));
+          }
+          m0 = fminf(m0, __shfl_xor_sync(0xffffffffu, m0, 1));
+          m0 = fminf(m0, __shfl_xor_sync(0xffffffffu, m0, 2));
+          m1 = fminf(m1, __shfl_xor_sync(0xffffffffu, m1, 1));
+          m1 = fminf(m1, __shfl_xor_sync(0xffffffffu, m1, 2));
+          if ((g & 3) == t0) {
+            float* o = out_blk + (size_t)(n * NG + g) * qb;
+            if (r0 < q_valid) o[r0] = m0;
+            if (r0 + 8 < q_valid) o[r0 + 8] = m1;
+          }
+        }
+        fence_acc(d);
       }
-      s += __shfl_xor_sync(0xffffffffu, s, 1);
-      s += __shfl_xor_sync(0xffffffffu, s, 2);
-      if (part == 0) xn[r] = s;
     }
-    int acc[4][4] = {};
-    for (int k = 0; k < d4; ++k) {
-      const int4 a = *reinterpret_cast<const int4*>(&Xw[k * (BM + PAD) + ty * 4]);
-      const int4 b = *reinterpret_cast<const int4*>(&Qw[k * (BN + PAD) + tx * 4]);
-      const int av[4] = {a.x, a.y, a.z, a.w}, bv[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-      for (int m = 0; m < 4; ++m)
-#pragma unroll
-        for (int n = 0; n < 4; ++n) acc[m][n] = __dp4a(av[m], bv[n], acc[m][n]);
-    }
-    __syncthreads();
-#pragma unroll
-    for (int n = 0; n < 4; ++n) {
-      float mn = INFINITY;
-#pragma unroll
-      for (int m = 0; m < 4; ++m) {
-        float v = -t * (float)acc[m][n];  // |acc| <= 127^2 d < 2^24: exact in f32
-        if (l2) v = xn[ty * 4 + m] + v;
-        mn = fminf(mn, v);
-      }
-      red[ty][tx * 4 + n] = mn;
-    }
-    __syncthreads();
-    fold_tile(red, gm, rt, sel_rows);
   }
-  __syncthreads();
-  write_mins(gm, out_blk, qb, c0, SG);
 }
 
-size_t common_smem() { return (16 + MAX_SG) * BN * sizeof(float) + BM * sizeof(float); }
+// cuTensorMapEncodeTiled, fetched from the driver at run time (no -lcuda)
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiledFn>(p);
+  }
+  return fn;
+}
+
+// a (rows, row_bytes) byte matrix read in boxes of box_rows x 128 bytes,
+// 128-byte swizzled, zero past the matrix
+bool byte_map(CUtensorMap* map, const void* base, int row_bytes, long long rows,
+              int box_rows) {
+  const EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[2] = {(cuuint64_t)row_bytes, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)row_bytes};
+  const cuuint32_t box[2] = {(cuuint32_t)KB, (cuuint32_t)box_rows};
+  const cuuint32_t unit[2] = {1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(base), dims, strides, box,
+            unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
+         CUDA_SUCCESS;
+}
+
+template <bool INT8, bool ALIGNED>
+cudaError_t launch_wgmma(int sel_rows, const void* q, const void* corpus, const int* supers,
+                         const int* ulen, const float* xsq, const float* t_eff, float* out,
+                         int rows, int U, int qb, int row_bytes, int n_rows, int l2,
+                         int device, cudaStream_t st) {
+  auto kernel = sel_rows == 32   ? groupmin_wgmma<32, INT8, ALIGNED>
+                : sel_rows == 64 ? groupmin_wgmma<64, INT8, ALIGNED>
+                                 : groupmin_wgmma<128, INT8, ALIGNED>;
+  CUtensorMap tm_q = {}, tm_x = {};
+  if (ALIGNED && (!byte_map(&tm_q, q, row_bytes, (long long)rows * qb, WM) ||
+                  !byte_map(&tm_x, corpus, row_bytes, n_rows, WN)))
+    return cudaErrorInvalidValue;
+  int sms = 0;
+  cudaError_t err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)WG_SMEM);
+  if (err != cudaSuccess) return err;
+  const int QT = (qb + WM - 1) / WM;
+  const long long n_items = (long long)rows * U * QT;
+  const int grid = (int)(n_items < sms ? n_items : sms);
+  kernel<<<grid, WT, WG_SMEM, st>>>(
+      static_cast<const uint8_t*>(q), static_cast<const uint8_t*>(corpus), supers, ulen, xsq,
+      t_eff, out, U, qb, row_bytes, QT, n_items, l2, tm_q, tm_x);
+  return cudaGetLastError();
+}
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16, 2 = int8.  All pointers are device
-// pointers on `device`; t_eff (1 float) and s2 (d floats) are read by int8
+// pointers on `device`; the corpus has n_rows rows; xsq (one float per
+// corpus row, 16-byte aligned) is read for L2 only, t_eff (1 float) by int8
 // only.  Launches on `stream` and returns the cudaError_t of the launch
 // (0 = launched).
 extern "C" int lira_union_groupmin(int dtype, int l2, const void* q, const void* corpus,
                                    const int* supers, const int* ulen, const float* t_eff,
-                                   const float* s2, float* out, int rows, int U, int qb,
-                                   int d, int sel_rows, int device, void* stream) {
+                                   const float* xsq, float* out, int rows, int U, int qb,
+                                   int d, int n_rows, int sel_rows, int device, void* stream) {
   if (rows <= 0 || rows > 65535 || U <= 0 || U > 65535 || qb <= 0 || d <= 0 ||
-      (sel_rows != 32 && sel_rows != 64 && sel_rows != 128))
+      n_rows <= 0 || n_rows % S_ROWS || (sel_rows != 32 && sel_rows != 64 && sel_rows != 128) ||
+      dtype < 0 || dtype > 2 || (l2 && (xsq == nullptr || reinterpret_cast<uintptr_t>(xsq) % 16)) ||
+      (dtype == 2 && (d % 4 || t_eff == nullptr)))
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((qb + BN - 1) / BN, U, rows), block(NT);
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  if (dtype == 2) {
-    if (d % 4) return (int)cudaErrorInvalidValue;
-    const size_t smem = (size_t)(d / 4) * (BM + PAD + BN + PAD) * sizeof(int) +
-                        common_smem() + (size_t)d * sizeof(float);
-    err = cudaFuncSetAttribute(groupmin_int8, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  if (dtype == 0) {
+    const size_t smem = sizeof(F32Smem);
+    err = cudaFuncSetAttribute(groupmin_f32, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)smem);
     if (err != cudaSuccess) return (int)err;
-    groupmin_int8<<<grid, block, smem, st>>>(
-        static_cast<const int8_t*>(q), static_cast<const int8_t*>(corpus), supers, ulen,
-        t_eff, s2, out, U, qb, d, sel_rows, l2);
+    const dim3 grid((qb + BN - 1) / BN, U, rows);
+    groupmin_f32<<<grid, NT, smem, st>>>(static_cast<const float*>(q),
+                                         static_cast<const float*>(corpus), supers, ulen, xsq,
+                                         out, U, qb, d, sel_rows, l2);
     return (int)cudaGetLastError();
   }
-  const size_t smem = (size_t)d * (BM + PAD + BN + PAD) * sizeof(float) + common_smem();
-  if (dtype == 0) {
-    err = cudaFuncSetAttribute(groupmin_float<float>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    groupmin_float<float><<<grid, block, smem, st>>>(
-        static_cast<const float*>(q), static_cast<const float*>(corpus), supers, ulen, out,
-        U, qb, d, sel_rows, l2);
-  } else if (dtype == 1) {
-    err = cudaFuncSetAttribute(groupmin_float<__nv_bfloat16>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    groupmin_float<__nv_bfloat16><<<grid, block, smem, st>>>(
-        static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(corpus),
-        supers, ulen, out, U, qb, d, sel_rows, l2);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  // TMA needs 16-byte aligned rows; narrower rows than one 128-byte stage
+  // take the byte path too
+  const int row_bytes = dtype == 1 ? 2 * d : d;
+  const bool aligned = row_bytes % 16 == 0 && row_bytes >= KB &&
+                       reinterpret_cast<uintptr_t>(q) % 16 == 0 &&
+                       reinterpret_cast<uintptr_t>(corpus) % 16 == 0;
+  if (dtype == 1)
+    err = aligned ? launch_wgmma<false, true>(sel_rows, q, corpus, supers, ulen, xsq, t_eff, out,
+                                              rows, U, qb, row_bytes, n_rows, l2, device, st)
+                  : launch_wgmma<false, false>(sel_rows, q, corpus, supers, ulen, xsq, t_eff,
+                                               out, rows, U, qb, row_bytes, n_rows, l2, device,
+                                               st);
+  else
+    err = aligned ? launch_wgmma<true, true>(sel_rows, q, corpus, supers, ulen, xsq, t_eff, out,
+                                             rows, U, qb, row_bytes, n_rows, l2, device, st)
+                  : launch_wgmma<true, false>(sel_rows, q, corpus, supers, ulen, xsq, t_eff, out,
+                                              rows, U, qb, row_bytes, n_rows, l2, device, st);
+  return (int)err;
 }

@@ -42,7 +42,7 @@ import torch
 from .. import true_fp32
 from ..ops.distance import l2_to_centroids
 from ..ops.topk import top_k
-from .screen import S_TILES, union_groupmin
+from .screen import S_TILES, screen_norms, union_groupmin
 
 _BIG = 3e38
 
@@ -182,6 +182,7 @@ def _screen_rescore(
     sub: int,
     sel_rows: int = 128,
     dim_scale: torch.Tensor | None = None,  # (d,) f32 per-dim int8 corpus scale
+    screen_sq: torch.Tensor | None = None,  # (n_rows,) f32 K1 row norms (L2)
 ):
     """K1 screen + masked group selection + exact f32 rescore over every
     query block.  Returns (neg (B_pad, k_loc), ids (B_pad, k_loc), k_loc) in
@@ -202,7 +203,7 @@ def _screen_rescore(
     def screen_chunk(sup_c, ulen_c, s: int, e: int):
         return union_groupmin(
             q_r1[s * qb : e * qb], corpus_flat, sup_c.contiguous(), ulen_c.contiguous(),
-            qb=qb, metric=metric, sel_rows=sel_rows, t_eff=t_eff, s2=s2,
+            qb=qb, metric=metric, sel_rows=sel_rows, t_eff=t_eff, s2=s2, xsq=screen_sq,
         )
 
     groups_r2 = corpus_flat_f32.view(-1, sel_rows, d)
@@ -311,7 +312,7 @@ def _screen_rescore(
 @torch.no_grad()
 def _scan_all(q_pad, probed, perm, supers, tb, ulen, corpus_flat, bsq, corpus_flat_f32,
               tiles_ids, tile_pad_count, *, metric: str, kg: int, fetch_k: int, k: int,
-              qb: int, sub: int, sel_rows: int = 128, dim_scale=None):
+              qb: int, sub: int, sel_rows: int = 128, dim_scale=None, screen_sq=None):
     """(scores (B_pad, k), ids (B_pad, k)) in caller order, deduplicated to
     k distinct neighbours."""
     n_blocks = supers.shape[0]
@@ -320,7 +321,7 @@ def _scan_all(q_pad, probed, perm, supers, tb, ulen, corpus_flat, bsq, corpus_fl
     neg, ids, k_loc = _screen_rescore(
         q_perm, probed_p, supers, tb, ulen, corpus_flat, bsq, corpus_flat_f32,
         tiles_ids, tile_pad_count, metric=metric, kg=kg, fetch_k=fetch_k, qb=qb,
-        sub=sub, sel_rows=sel_rows, dim_scale=dim_scale,
+        sub=sub, sel_rows=sel_rows, dim_scale=dim_scale, screen_sq=screen_sq,
     )
     ids, neg = _dedup_topk_dev(ids, neg, k)
     out_scores = torch.empty_like(neg)
@@ -353,7 +354,7 @@ class BlockScanState:
     Device cost: one f32 corpus copy (round 2), plus a bf16 (int8) copy when
     scan_dtype is bfloat16 (int8) — 1.0× / 1.5× / 1.25× the padded corpus;
     in capacity mode (store_f32=False) the bf16 (int8) table alone — 0.5× /
-    0.25×.  All other state (norms, ids, pad counts) is O(rows · 8 B)."""
+    0.25×.  All other state (norms, ids, pad counts) is O(rows · 12 B)."""
 
     @classmethod
     @torch.no_grad()
@@ -436,8 +437,8 @@ class BlockScanState:
         for int8, its `dim_scale`)."""
         dev = corpus_dev.device
         self.store_f32 = store_f32 or scan_dtype not in (torch.bfloat16, torch.int8)
-        # Pad rows become COPIES of their bucket's last real row: K1 computes
-        # row norms from the rows it loads (no per-row penalty operand), so a
+        # Pad rows become COPIES of their bucket's last real row: K1 takes
+        # row norms of the rows as stored (no per-row penalty operand), so a
         # pad row must score exactly like a real row of its own selection
         # group.  Pads are a per-bucket suffix, so the last real row at or
         # before each position is in the same tile AND the same group
@@ -470,6 +471,10 @@ class BlockScanState:
             ).to(torch.int8)
         else:
             self.corpus_flat = corpus_dev
+        # K1's L2 row norms of the screen table, built once (4 B a row)
+        s2 = None if self.dim_scale is None else self.dim_scale * self.dim_scale
+        self.screen_sq = (None if metric == "inner_product"
+                          else screen_norms(self.corpus_flat, s2))
 
         self.tiles_ids = torch.as_tensor(ids.reshape(n_super * S_TILES, tile), device=dev)
         if metric == "inner_product":
@@ -653,6 +658,7 @@ def _dispatch_scan(state, engine, h, union, fetch_k, k, kg, sel_rows):
         state.corpus_flat, state.bsq, state.corpus_flat_f32, state.tiles_ids,
         state.tile_pad_count, metric=engine.metric, kg=kg, fetch_k=fetch_k, k=k,
         qb=h["qb"], sub=sub, sel_rows=sel_rows, dim_scale=state.dim_scale,
+        screen_sq=state.screen_sq,
     )
 
 

@@ -36,15 +36,20 @@ def cuda():
     return resolve_device("cuda")
 
 
+# (d, qb): d = 100 is no multiple of 16 bytes a row in any dtype (the
+# byte-wise copy), d = 960 (GIST) exceeded shared memory before d was
+# staged in chunks; qb 200 is no multiple of any query tile, qb 8 the
+# engine's smallest block
+@pytest.mark.parametrize("d,qb", [(32, 200), (100, 200), (960, 200), (128, 8)])
 @pytest.mark.parametrize("sel_rows", [32, 64, 128])
 @pytest.mark.parametrize("metric", ["L2", "inner_product"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
-def test_k1_kernel_matches_plain(cuda, dtype, metric, sel_rows):
+def test_k1_kernel_matches_plain(cuda, dtype, metric, sel_rows, d, qb):
     from lira_tpu_torch.engine.block_scan import screen_queries
     from lira_tpu_torch.engine.screen import union_groupmin, union_groupmin_ref
 
     g = torch.Generator().manual_seed(1)
-    qb, d, U, rows, n_super = 200, 32, 5, 3, 6  # qb not a multiple of the 64-query tile
+    U, rows, n_super = 5, 3, 6
     x = torch.randn(n_super * 1024, d, generator=g)
     q = torch.randn(rows * qb, d, generator=g)
     supers = torch.randint(0, n_super, (rows, U), generator=g, dtype=torch.int32)

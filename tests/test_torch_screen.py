@@ -18,7 +18,7 @@ from jax.experimental import pallas as pl
 from jax.experimental.pallas import tpu as pltpu
 
 from lira_tpu.engine.block_scan import S_TILES, _union_groupmin_kernel
-from lira_tpu_torch.engine.screen import union_groupmin, union_groupmin_ref
+from lira_tpu_torch.engine.screen import screen_norms, union_groupmin, union_groupmin_ref
 
 QB, D, U, ROWS, N_SUPER = 16, 16, 3, 2, 4
 EPS32 = float(np.finfo(np.float32).eps)
@@ -102,6 +102,35 @@ def test_k1_plain_matches_pallas_interpret(dtype, metric, sel_rows):
     if dtype == "int8":
         tol = 2 * D * EPS32 * float(((xf * xf) @ s2).max())
     np.testing.assert_allclose(got[live], ref[live], rtol=0, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
+def test_k1_with_row_norms_matches_pallas_interpret(dtype):
+    """The engine's path: ‖x‖² from `screen_norms` of the table (built once
+    with the index) instead of from the loaded rows; same tolerance."""
+    x, q, supers, ulen, t_eff, s2 = _inputs(dtype, "L2")
+    if dtype == "bfloat16":
+        xj, qj = jnp.asarray(x, jnp.bfloat16), jnp.asarray(q, jnp.bfloat16)
+        xt, qt = torch.from_numpy(x).bfloat16(), torch.from_numpy(q).bfloat16()
+    else:
+        xj, qj, xt, qt = x, q, torch.from_numpy(x), torch.from_numpy(q)
+    ref = _pallas_k1(qj, xj, supers, ulen, t_eff, s2, "L2", 32)
+    s2_t = None if s2 is None else torch.from_numpy(s2)
+    xsq = screen_norms(xt, s2_t)
+    assert xsq.shape == (len(x),) and xsq.dtype == torch.float32
+    kw = dict(qb=QB, metric="L2", sel_rows=32,
+              t_eff=None if t_eff is None else torch.from_numpy(t_eff), s2=s2_t)
+    args = (qt, xt, torch.from_numpy(supers), torch.from_numpy(ulen))
+    got = union_groupmin(*args, xsq=xsq, **kw).numpy()
+    big = np.float32(3e38)
+    assert (got[1, 32:] == big).all()
+    live = ref != big
+    xf = np.asarray(xt.float())
+    xn = (xf * xf).sum(1).max() if s2 is None else float(((xf * xf) @ s2).max())
+    qn = (np.asarray(qt.float()) ** 2).sum(1).max()
+    tol = 2 * D * EPS32 * (xn if dtype == "int8" else xn + 2 * np.sqrt(xn * qn))
+    np.testing.assert_allclose(got[live], ref[live], rtol=0, atol=tol)
+    np.testing.assert_allclose(got, union_groupmin(*args, **kw).numpy(), rtol=0, atol=tol)
 
 
 def test_k1_wrapper_rejects_what_the_kernel_does_not_take():
