@@ -9,11 +9,13 @@ prober), runs the small-scale pipeline, and checks the answers.
 Phases (any failure exits non-zero; nothing is caught and passed over):
   1. the device: name, count, `nvidia-smi` name and power limit;
   2. the kernel build (nvcc, sm_90a, one process per source, in parallel)
-     and what `-Xptxas -v` reports; the warpgroup MMAs (HGMMA, IGMMA) that
-     `cuobjdump -sass` finds in K1's library, each count > 0;
+     and what `-Xptxas -v` reports; `cuobjdump -sass` read per function:
+     K1's bf16/int8 functions hold warpgroup MMAs (HGMMA, IGMMA, each
+     count > 0), K1's and K2's f32 functions FFMA and no HMMA/HGMMA;
   3. K1 against its plain version on the card: every dtype × metric ×
      sel_rows at qb=1024, d=128, U=64, and every dtype × metric at qb=256,
-     d=960, U=16, each with a partly dead union, timed;
+     d=960, U=16, each with a partly dead union, timed (f32 at d=960
+     beside its library call);
   4. K2 against its plain version on the card: f32, bf16-rounded and int8
      × L2 and IP at Q=8192, d=128 over 64 groups, one partly padded, timed;
      K3 against its plain version: k in {1, 20, 36, 128} × L2 and IP at
@@ -22,7 +24,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
   5. the trained index at full size (bench.py's recipe): a 1M×128
      hard-regime corpus, K-Means to 1024 buckets, the self-kNN (k=10)
      through the fused path and K2 in f32 (123 launches, checked exact on
-     1024 sampled rows against a brute-force top-k on the card), kNN
+     1024 sampled rows against a brute-force top-k on the card; the SM
+     clock and power sampled while K2 runs), kNN
      labels, scaled distances, and 6 epochs of training at batch 256;
      K2 at the main path's shape against its plain version;
   6. serving with the trained MLP: QueryEngine(scan_impl="blocked",
@@ -206,22 +209,51 @@ def phase_k1_grid(dev) -> None:
                         f"library {rec['library_ms']:.3f} ms, {rec['live_slots']} live slots")
                     if err > tol:
                         raise AssertionError(f"{tag}: {err} > {tol}")
+                    if d == 960 and dtype == torch.float32:
+                        log(f"K1 d=960 float32 {metric}: kernel {rec['ms']:.3f} ms, library "
+                            f"{rec['library_ms']:.3f} ms ({rec['ms'] / rec['library_ms']:.2f}x)")
 
 
-def k1_tensor_core_check(lib_path) -> None:
-    """Warpgroup MMA instructions in the built K1 library's SASS
-    (`cuobjdump -sass`): HGMMA (bf16) and IGMMA (int8).  Fails if either
-    count is 0 — the bf16 and int8 screens must run on the tensor cores."""
+def sass_functions(lib_path) -> dict:
+    """`cuobjdump -sass` of a built library, split by function: {mangled
+    name: its SASS}."""
     from lira_tpu_torch.kernels import _nvcc
 
     cuobjdump = os.path.join(os.path.dirname(_nvcc()), "cuobjdump")
     sass = subprocess.run([cuobjdump, "-sass", lib_path], capture_output=True, text=True,
                           check=True).stdout
-    ops = re.findall(r"\b[A-Z]*GMMA\.[\w.]+", sass)
+    funcs = {}
+    for chunk in re.split(r"\n\s*Function : ", sass)[1:]:
+        name, _, body = chunk.partition("\n")
+        funcs[name.strip()] = body
+    return funcs
+
+
+def kernel_sass_check(built) -> None:
+    """What the built kernels run on, read per function from their SASS:
+    K1's bf16 and int8 screens (`groupmin_wgmma`) must hold warpgroup MMAs,
+    HGMMA (bf16) and IGMMA (int8); K1's and K2's f32 functions
+    (`k1_groupmin_fma`, `k2_groupmin_fma`) must hold FFMA and no HMMA or
+    HGMMA — f32 stays on CUDA-core FMAs, never TF32.  Fails otherwise."""
+    k1 = sass_functions(built["union_groupmin"]["path"])
+    wg = "".join(body for name, body in k1.items() if "groupmin_wgmma" in name)
+    ops = re.findall(r"\b[A-Z]*GMMA\.[\w.]+", wg)
     counts = {m: sum(1 for o in ops if o.startswith(m + ".")) for m in ("HGMMA", "IGMMA")}
     log(f"K1 SASS warpgroup MMAs: {counts}; forms {sorted(set(ops))}")
     if not all(counts.values()):
         raise AssertionError(f"K1's library lacks warpgroup MMAs: {counts}")
+    k2 = sass_functions(built["groupmin"]["path"])
+    for lib, tag, funcs in ((k1, "K1", "k1_groupmin_fma"), (k2, "K2", "k2_groupmin_fma")):
+        found = {name: body for name, body in lib.items() if funcs in name}
+        if not found:
+            raise AssertionError(f"{tag}: no {funcs} function in its library's SASS")
+        for name, body in sorted(found.items()):
+            ffma = len(re.findall(r"\bFFMA\b", body))
+            mma = len(re.findall(r"\bH(?:G)?MMA\b", body))
+            log(f"{tag} f32 SASS {name}: {ffma} FFMA, {mma} HMMA/HGMMA")
+            if ffma == 0 or mma:
+                raise AssertionError(f"{tag} f32 function {name}: {ffma} FFMA, {mma} HMMA/HGMMA "
+                                     f"(must be FMAs only, no TF32)")
 
 
 def profile_device(fn, tag) -> None:
@@ -556,6 +588,10 @@ def phase_trained_index(dev, n=1_000_000, d=128, n_bkt=1024, batch=65536, k=10,
     del out, ref
     tiles = [base_p[s : s + q_tile] for s in range(0, n, q_tile)]
     tiles[-1] = torch.nn.functional.pad(tiles[-1], (0, 0, 0, q_tile - len(tiles[-1])))
+    # the SM clock and power while the FMAs run flat out (nvidia-smi every 0.5 s)
+    smi = subprocess.Popen(["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+                            "--format=csv,noheader,nounits", "-lms", "500"],
+                           stdout=subprocess.PIPE, text=True)
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
     for qt in tiles:
@@ -563,6 +599,15 @@ def phase_trained_index(dev, n=1_000_000, d=128, n_bkt=1024, batch=65536, k=10,
     end.record()
     end.synchronize()
     all_ms = start.elapsed_time(end)
+    smi.terminate()
+    samples = [[float(v) for v in line.split(",")]
+               for line in smi.communicate()[0].splitlines() if line.count(",") == 1]
+    if samples:
+        clk, pw = [s[0] for s in samples], [s[1] for s in samples]
+        log(f"under K2's load: SM clock {min(clk):.0f}-{max(clk):.0f} MHz, power "
+            f"{min(pw):.0f}-{max(pw):.0f} W ({len(samples)} samples)")
+    else:
+        log("under K2's load: SM clock and power not measured (no nvidia-smi samples)")
     log(f"K2 at the main path's shape (Q={q_tile}, n_pad={n_pad}, d={d}, f32 L2): "
         f"max|kernel-plain|={err:.3g} (tol {tol:.3g}), {rec['ms']:.3f} ms, plain "
         f"{rec['plain_ms']:.3f} ms, bound {rec['bound_ms']:.3f} ms ({rec['bound_by']}), "
@@ -1106,7 +1151,7 @@ def main() -> int:
     for name, info in built.items():
         log(f"{name}: {info['seconds']:.1f}s -> {info['path']}")
         log(info["ptxas"])
-    k1_tensor_core_check(built["union_groupmin"]["path"])
+    kernel_sass_check(built)
 
     # the script's own f32 products (the brute-force checks, the library
     # yardsticks, the tolerances) in true fp32, as the port's f32 paths are

@@ -23,35 +23,32 @@
 // is labelled exact).  bf16 and int8 would be bound by the tensor cores'
 // 989 / 1979 T/s, which this first version does not use.
 //
-// The design is the simple, correct first version: a classic register-
-// tiled SGEMM.  A block owns one 128-row group and 128 queries; the d axis
-// is walked in chunks of 16 (f32) or 64 (int8) staged in shared memory, and
-// each of the 256 threads accumulates an 8x8 patch (rows ty*4 + {0..3, 64..67},
-// queries tx*4 + {0..3, 64..67}) in registers.  The group's min is taken
-// in registers over each thread's 8 rows, then across the 16 row-threads in
-// shared memory; no score ever reaches device memory, which is the point of
-// the TPU kernel.  Blocks are independent (each writes its own group), and
-// the one-dimensional grid runs query tiles fastest, so the Q/128 blocks
-// that share a group read it from L2.  The epilogue rounds the product
-// before the subtraction (no FMA contraction), as the plain version and
-// the TPU kernel do.  Double buffering and wgmma/TMA are later work.
+// The design.  Modes 0 and 1 run on the f32 mainloop shared with K1
+// (fma_groupmin.cuh): persistent CTAs walk (8-group tile, 128-query tile)
+// items, query tile fastest, so the CTAs in flight share one 1024-row
+// stretch of the corpus in L2 and each group is read from device memory
+// once per launch; a 3-stage cp.async ring over slices of 32 floats of d
+// (any d); 8x8 sums a thread.  A group's min is the thread's 8 rows plus
+// a shuffle reduce-scatter; each lane keeps 4 of the item's minima for one
+// query and writes them with its neighbour as 8 consecutive groups: one
+// 32-byte sector a query.  Mode 1 rounds the staged values to bf16.  The
+// epilogue rounds the product before the subtraction (no FMA contraction),
+// as the plain version and the TPU kernel do.  Mode 2 (int8) keeps the first
+// version's body: one block per (group, 128 queries), 8x8 __dp4a sums, the
+// group min through shared memory.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "fma_groupmin.cuh"
 
 namespace {
 
 constexpr int GROUP = 128;  // corpus rows per group (= per block)
 constexpr int BQ = 128;     // queries per block
-constexpr int KC = 16;      // f32 values of d per stage
 constexpr int KW = 16;      // int8 words (4 values each) of d per stage
 constexpr int PAD = 4;      // keeps float4 alignment, spreads banks
 constexpr int NT = 256;     // 16 row-threads x 16 query-threads
-
-__device__ __forceinline__ float stage_value(float v, int mode) {
-  return mode == 1 ? __bfloat162float(__float2bfloat16_rn(v)) : v;
-}
 
 // min over each query column of the thread's 8 rows, then across the 16
 // row-threads; thread c < BQ writes query c's min for this group
@@ -76,53 +73,62 @@ __device__ __forceinline__ void write_group_min(float (&sc)[8][8], float (*red)[
   }
 }
 
-// modes 0 (f32) and 1 (bf16-rounded inputs): f32 FMAs into an 8x8 patch
-__global__ void __launch_bounds__(NT, 2)
-knn_groupmin_float(const float* __restrict__ q, const float* __restrict__ base,
-                   const float* __restrict__ bsq, float* __restrict__ out, int Q,
-                   int n_groups, int d, int mode, float scale) {
-  __shared__ __align__(16) float Xs[KC][GROUP + PAD];
-  __shared__ __align__(16) float Qs[KC][BQ + PAD];
-  __shared__ float red[16][BQ];
+// modes 0 (f32) and 1 (bf16-rounded inputs): items (8-group tile gt,
+// 128-query tile qt), qt fastest
+struct K2Job {
+  const float* q;
+  const float* base;
+  const float* bsq;
+  float* out;
+  int Q, n_groups, d, QT;
+  float scale;
+  long long n_items;
+  float keep[4];  // lane a: groups 4(a%2)..+3 of the item for query 8b + a/2
 
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const int n_qt = (Q + BQ - 1) / BQ;
-  const int q0 = (int)(blockIdx.x % n_qt) * BQ, g = (int)(blockIdx.x / n_qt);
-  const float* xg = base + (size_t)g * GROUP * d;
+  __device__ bool live(long long) const { return true; }
+  __device__ fma_gm::Item item(long long it) const {
+    const int gt = (int)(it / QT), qt = (int)(it % QT);
+    return {base + (size_t)gt * fma_gm::MAX_TILES * GROUP * d,
+            q + (size_t)qt * fma_gm::TQ * d, bsq + (size_t)gt * fma_gm::MAX_TILES * GROUP,
+            min(fma_gm::TQ, Q - qt * fma_gm::TQ), min(fma_gm::MAX_TILES, n_groups - gt * fma_gm::MAX_TILES)};
+  }
+  __device__ void dead(long long) const {}
+  __device__ void tile(long long, const fma_gm::Item&, int t, float (&acc)[8][8],
+                       const float* xn, int a, int) {
+    float m[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) m[j] = INFINITY;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const float x2 = xn[a + 16 * i];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) m[j] = fminf(m[j], x2 - __fmul_rn(scale, acc[i][j]));
+    }
+    const float v = fma_gm::min16_scatter(m, a);  // query 8b + a/2's minimum of group t
+    if ((t >> 2) == (a & 1)) {
+#pragma unroll
+      for (int s = 0; s < 4; ++s) keep[s] = s == (t & 3) ? v : keep[s];
+    }
+  }
+  __device__ void item_end(long long it, const fma_gm::Item& item, int a, int b) const {
+    const int qq = (int)(it % QT) * fma_gm::TQ + 8 * b + (a >> 1);
+    const int n = item.tiles - 4 * (a & 1);  // of this lane's 4 groups
+    if (qq >= Q || n <= 0) return;
+    float* o = out + (size_t)qq * n_groups + (it / QT) * fma_gm::MAX_TILES + 4 * (a & 1);
+    if (n >= 4 && n_groups % 4 == 0) {
+      *reinterpret_cast<float4*>(o) = make_float4(keep[0], keep[1], keep[2], keep[3]);
+    } else {
+#pragma unroll
+      for (int s = 0; s < 4; ++s)
+        if (s < n) o[s] = keep[s];
+    }
+  }
+};
 
-  float acc[8][8] = {};
-  for (int k0 = 0; k0 < d; k0 += KC) {
-    for (int e = tid; e < GROUP * KC; e += NT) {
-      const int r = e / KC, k = e % KC;
-      const bool in_d = k0 + k < d;
-      Xs[k][r] = in_d ? stage_value(xg[(size_t)r * d + k0 + k], mode) : 0.0f;
-      Qs[k][r] = (in_d && q0 + r < Q)
-                     ? stage_value(q[(size_t)(q0 + r) * d + k0 + k], mode)
-                     : 0.0f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int k = 0; k < KC; ++k) {
-      const float4 a0 = *reinterpret_cast<const float4*>(&Xs[k][ty * 4]);
-      const float4 a1 = *reinterpret_cast<const float4*>(&Xs[k][64 + ty * 4]);
-      const float4 b0 = *reinterpret_cast<const float4*>(&Qs[k][tx * 4]);
-      const float4 b1 = *reinterpret_cast<const float4*>(&Qs[k][64 + tx * 4]);
-      const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-      for (int m = 0; m < 8; ++m)
-#pragma unroll
-        for (int n = 0; n < 8; ++n) acc[m][n] = fmaf(av[m], bv[n], acc[m][n]);
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int m = 0; m < 8; ++m) {
-    const float b = bsq[(size_t)g * GROUP + (m < 4 ? 0 : 64) + ty * 4 + (m & 3)];
-#pragma unroll
-    for (int n = 0; n < 8; ++n) acc[m][n] = b - __fmul_rn(scale, acc[m][n]);
-  }
-  write_group_min(acc, red, out, Q, n_groups, g, q0, tx, ty);
+template <int VEC, bool ROUND>
+__global__ void __launch_bounds__(fma_gm::THREADS, 1) k2_groupmin_fma(K2Job job) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  fma_gm::run<VEC, ROUND>(job, smem_raw);
 }
 
 // mode 2 (int8): exact int32 dots through __dp4a on words of four values
@@ -190,16 +196,24 @@ extern "C" int lira_groupmin(int mode, int l2, const void* q, const void* base,
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((unsigned)blocks), block(NT);
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   if (mode == 2) {
-    knn_groupmin_int8<<<grid, block, 0, st>>>(static_cast<const int*>(q),
-                                              static_cast<const int*>(base), bsq, t_eff,
-                                              out, Q, n_groups, d / 4);
-  } else {
-    knn_groupmin_float<<<grid, block, 0, st>>>(static_cast<const float*>(q),
-                                               static_cast<const float*>(base), bsq, out,
-                                               Q, n_groups, d, mode, l2 ? 2.0f : 1.0f);
+    knn_groupmin_int8<<<dim3((unsigned)blocks), dim3(NT), 0, st>>>(
+        static_cast<const int*>(q), static_cast<const int*>(base), bsq, t_eff, out, Q,
+        n_groups, d / 4);
+    return (int)cudaGetLastError();
   }
-  return (int)cudaGetLastError();
+  const int QT = (Q + fma_gm::TQ - 1) / fma_gm::TQ;
+  const int n_gt = (n_groups + fma_gm::MAX_TILES - 1) / fma_gm::MAX_TILES;
+  const K2Job job{static_cast<const float*>(q), static_cast<const float*>(base), bsq, out, Q,
+                  n_groups, d, QT, l2 ? 2.0f : 1.0f, (long long)n_gt * QT, {}};
+  // 16-byte copies need 16-byte aligned rows
+  const bool vec4 = d % 4 == 0 && reinterpret_cast<uintptr_t>(q) % 16 == 0 &&
+                    reinterpret_cast<uintptr_t>(base) % 16 == 0;
+  int sms = 0;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return (int)err;
+  const auto kernel = mode == 1 ? (vec4 ? k2_groupmin_fma<4, true> : k2_groupmin_fma<1, true>)
+                                : (vec4 ? k2_groupmin_fma<4, false> : k2_groupmin_fma<1, false>);
+  return (int)fma_gm::launch(kernel, job, sms, st);
 }

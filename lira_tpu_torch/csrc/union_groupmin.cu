@@ -51,8 +51,14 @@
 //   each tile's MMAs drain (wgmma.wait_group 0) before its epilogue and
 //   the tensor cores idle through it; ptxas also waits out each d step's
 //   MMAs before the next (C7517), which costs bf16's second step.
-// * f32 stays on CUDA-core FMAs (no TF32): a shared-memory tiled product,
-//   d staged in chunks of 128 so shared memory no longer grows with d.
+// * f32 stays on CUDA-core FMAs (no TF32), on the mainloop it shares with
+//   K2 (fma_groupmin.cuh): persistent CTAs walk the live (block, slot,
+//   128-query tile) items, query tile fastest, each item the supertile's 8
+//   row tiles (or one, when there are few slots) through a 3-stage cp.async
+//   ring (any d); a group's min is
+//   the thread's own rows plus a shuffle reduce-scatter, 8 lanes storing
+//   8 consecutive queries (32 bytes); dead items write 3e38 and load
+//   nothing.
 
 #include <cuda.h>  // CUtensorMap and its enums (the encoder is fetched at run time)
 #include <cuda_runtime.h>
@@ -60,106 +66,111 @@
 
 #include <type_traits>
 
+#include "fma_groupmin.cuh"
+
 namespace {
 
 constexpr int S_ROWS = 1024;  // rows per supertile
 constexpr float BIG = 3e38f;
 
 // ---------------------------------------------------------------------------
-// f32: CUDA-core FMAs
+// f32: CUDA-core FMAs, the shared mainloop of fma_groupmin.cuh
 // ---------------------------------------------------------------------------
 
-constexpr int BM = 64;               // corpus rows per row tile
-constexpr int BN = 64;               // queries per block
-constexpr int PAD = 4;               // keeps float4 alignment, spreads banks
-constexpr int NT = 256;              // 16 row-threads x 16 query-threads
-constexpr int DK = 128;              // d staged per chunk
-constexpr int MAX_SG = S_ROWS / 32;  // groups per supertile at sel_rows = 32
+// Items (block i, slot u, tile chunk, 128-query tile), the query tile
+// fastest: a live item is T row tiles of the supertile against the query
+// tile (T = 8, the whole supertile, or 1 when there are too few slots to
+// fill the SMs); a dead one writes 3e38.
+template <int SEL>
+struct K1Job {
+  static constexpr int SG = S_ROWS / SEL;       // groups per supertile
+  static constexpr int NGT = fma_gm::TR / SEL;  // groups per 128-row tile
+  static constexpr int IPG = SEL / 16;          // a thread's rows (i) per group
+  const float* q;
+  const float* corpus;
+  const float* xsq;
+  const int* supers;
+  const int* ulen;
+  float* out;
+  int U, qb, d, QT, l2;
+  int T, NTC;  // row tiles per item (1 or 8), items per (slot, query tile)
+  long long n_items;
 
-struct F32Smem {
-  float xs[DK][BM + PAD];
-  float qs[DK][BN + PAD];
-  float red[16][BN];
-  float gm[MAX_SG][BN];
-  float xn[BM];
+  __device__ bool live(long long it) const {
+    const long long slot = it / (QT * NTC);
+    return (int)(slot % U) < ulen[slot / U];
+  }
+  __device__ fma_gm::Item item(long long it) const {
+    const long long slot = it / (QT * NTC);
+    const int tc = (int)(it % (QT * NTC)) / QT, qt = (int)(it % QT);
+    const size_t row0 = (size_t)supers[slot] * S_ROWS + (size_t)tc * T * fma_gm::TR;
+    return {corpus + row0 * d, q + ((size_t)(slot / U) * qb + (size_t)qt * fma_gm::TQ) * d,
+            l2 ? xsq + row0 : nullptr, min(fma_gm::TQ, qb - qt * fma_gm::TQ), T};
+  }
+  // the item's first group row, at its query tile
+  __device__ float* block_out(long long it) const {
+    const long long slot = it / (QT * NTC);
+    const int tc = (int)(it % (QT * NTC)) / QT;
+    return out + ((size_t)slot * SG + (size_t)tc * T * NGT) * qb + (size_t)(it % QT) * fma_gm::TQ;
+  }
+  __device__ void dead(long long it) const {
+    float* o = block_out(it);
+    const int q_valid = min(fma_gm::TQ, qb - (int)(it % QT) * fma_gm::TQ);
+    for (int e = threadIdx.x; e < T * NGT * fma_gm::TQ; e += fma_gm::THREADS) {
+      const int g = e / fma_gm::TQ, c = e % fma_gm::TQ;
+      if (c < q_valid) o[(size_t)g * qb + c] = BIG;
+    }
+  }
+  // the tile's NGT group minima: lane a gets query 8b + a/2's, and the
+  // even lanes of a half-warp store 8 consecutive queries (32 bytes)
+  __device__ void tile(long long it, const fma_gm::Item& item, int t, float (&acc)[8][8],
+                       const float* xn, int a, int b) const {
+    const int c = 8 * b + (a >> 1);  // this lane's query in the tile
+    float* o = block_out(it) + (size_t)t * NGT * qb + c;
+#pragma unroll
+    for (int g = 0; g < NGT; ++g) {
+      float m[8];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) m[j] = INFINITY;
+#pragma unroll
+      for (int ii = 0; ii < IPG; ++ii) {
+        const int i = g * IPG + ii;
+        const float x2 = l2 ? xn[a + 16 * i] : 0.0f;
+#pragma unroll
+        for (int j = 0; j < 8; ++j)  // 2*acc is exact: one rounding
+          m[j] = fminf(m[j], l2 ? __fmaf_rn(-2.0f, acc[i][j], x2) : -acc[i][j]);
+      }
+      const float v = fma_gm::min16_scatter(m, a);
+      if (!(a & 1) && c < item.q_valid) o[(size_t)g * qb] = v;
+    }
+  }
+  __device__ void item_end(long long, const fma_gm::Item&, int, int) const {}
 };
 
-__global__ void __launch_bounds__(NT)
-groupmin_f32(const float* __restrict__ q, const float* __restrict__ corpus,
-             const int* __restrict__ supers, const int* __restrict__ ulen,
-             const float* __restrict__ xsq, float* __restrict__ out, int U, int qb, int d,
-             int sel_rows, int l2) {
+template <int SEL, int VEC>
+__global__ void __launch_bounds__(fma_gm::THREADS, 1) k1_groupmin_fma(K1Job<SEL> job) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  F32Smem& sm = *reinterpret_cast<F32Smem*>(smem_raw);
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const int c0 = blockIdx.x * BN, u = blockIdx.y, i = blockIdx.z;
-  const int SG = S_ROWS / sel_rows;
-  float* out_blk = out + ((size_t)i * U + u) * SG * qb;
-  if (u >= ulen[i]) {
-    for (int e = tid; e < SG * BN; e += NT) {
-      const int g = e / BN, c = e % BN;
-      if (c0 + c < qb) out_blk[(size_t)g * qb + c0 + c] = BIG;
-    }
-    return;
-  }
-  const int nk = (d + DK - 1) / DK;
-  auto load_q = [&](int k0, int kw) {
-    for (int e = tid; e < BN * kw; e += NT) {
-      const int c = e / kw, k = e % kw;
-      sm.qs[k][c] = (c0 + c < qb) ? q[((size_t)i * qb + c0 + c) * d + k0 + k] : 0.0f;
-    }
-  };
-  if (nk == 1) load_q(0, d);  // the whole query tile stays resident
-  for (int e = tid; e < MAX_SG * BN; e += NT) sm.gm[e / BN][e % BN] = INFINITY;
+  fma_gm::run<VEC, false>(job, smem_raw);
+}
 
-  const size_t row0 = (size_t)supers[(size_t)i * U + u] * S_ROWS;
-  for (int rt = 0; rt < S_ROWS / BM; ++rt) {
-    const float* src = corpus + (row0 + (size_t)rt * BM) * d;
-    float acc[4][4] = {};
-    for (int kc = 0; kc < nk; ++kc) {
-      const int k0 = kc * DK, kw = min(DK, d - k0);
-      __syncthreads();  // the previous chunk's (and tile's) reads are done
-      if (nk > 1) load_q(k0, kw);
-      for (int e = tid; e < BM * kw; e += NT) {
-        const int r = e / kw, k = e % kw;
-        sm.xs[k][r] = src[(size_t)r * d + k0 + k];
-      }
-      if (kc == 0 && l2 && tid < BM) sm.xn[tid] = xsq[row0 + (size_t)rt * BM + tid];
-      __syncthreads();
-      for (int k = 0; k < kw; ++k) {
-        const float4 a = *reinterpret_cast<const float4*>(&sm.xs[k][ty * 4]);
-        const float4 b = *reinterpret_cast<const float4*>(&sm.qs[k][tx * 4]);
-        const float av[4] = {a.x, a.y, a.z, a.w}, bv[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-        for (int m = 0; m < 4; ++m)
-#pragma unroll
-          for (int n = 0; n < 4; ++n) acc[m][n] = fmaf(av[m], bv[n], acc[m][n]);
-      }
-    }
-#pragma unroll
-    for (int n = 0; n < 4; ++n) {
-      float mn = INFINITY;
-#pragma unroll
-      for (int m = 0; m < 4; ++m) {
-        const float v = l2 ? sm.xn[ty * 4 + m] - 2.0f * acc[m][n] : -acc[m][n];
-        mn = fminf(mn, v);
-      }
-      sm.red[ty][tx * 4 + n] = mn;
-    }
-    __syncthreads();
-    if (tid < BN) {  // fold the 16 row-threads' 4-row minima into the group mins
-#pragma unroll
-      for (int t = 0; t < 16; ++t) {
-        const int g = (rt * BM + t * 4) / sel_rows;
-        sm.gm[g][tid] = fminf(sm.gm[g][tid], sm.red[t][tid]);
-      }
-    }
-  }
-  __syncthreads();
-  for (int e = tid; e < SG * BN; e += NT) {
-    const int g = e / BN, c = e % BN;
-    if (c0 + c < qb) out_blk[(size_t)g * qb + c0 + c] = sm.gm[g][c];
-  }
+template <int SEL>
+cudaError_t launch_fma(const float* q, const float* corpus, const int* supers, const int* ulen,
+                       const float* xsq, float* out, int rows, int U, int qb, int d, int l2,
+                       int device, cudaStream_t st) {
+  int sms = 0;
+  cudaError_t err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return err;
+  const int QT = (qb + fma_gm::TQ - 1) / fma_gm::TQ;
+  // items of the whole supertile (8 row tiles) decode a slot once per 8
+  // tiles; items of one tile keep every SM busy when there are few slots
+  const long long slot_tiles = (long long)rows * U * QT;
+  const int T = slot_tiles >= 16LL * sms ? S_ROWS / fma_gm::TR : 1, NTC = S_ROWS / fma_gm::TR / T;
+  const K1Job<SEL> job{q, corpus, xsq, supers, ulen, out, U, qb, d, QT, l2, T, NTC,
+                       slot_tiles * NTC};
+  // 16-byte copies need 16-byte aligned rows
+  const bool vec4 = d % 4 == 0 && reinterpret_cast<uintptr_t>(q) % 16 == 0 &&
+                    reinterpret_cast<uintptr_t>(corpus) % 16 == 0;
+  return fma_gm::launch(vec4 ? k1_groupmin_fma<SEL, 4> : k1_groupmin_fma<SEL, 1>, job, sms, st);
 }
 
 // ---------------------------------------------------------------------------
@@ -560,15 +571,14 @@ extern "C" int lira_union_groupmin(int dtype, int l2, const void* q, const void*
   if (err != cudaSuccess) return (int)err;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   if (dtype == 0) {
-    const size_t smem = sizeof(F32Smem);
-    err = cudaFuncSetAttribute(groupmin_f32, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    const dim3 grid((qb + BN - 1) / BN, U, rows);
-    groupmin_f32<<<grid, NT, smem, st>>>(static_cast<const float*>(q),
-                                         static_cast<const float*>(corpus), supers, ulen, xsq,
-                                         out, U, qb, d, sel_rows, l2);
-    return (int)cudaGetLastError();
+    const float *qf = static_cast<const float*>(q), *xf = static_cast<const float*>(corpus);
+    err = sel_rows == 32   ? launch_fma<32>(qf, xf, supers, ulen, xsq, out, rows, U, qb, d, l2,
+                                            device, st)
+          : sel_rows == 64 ? launch_fma<64>(qf, xf, supers, ulen, xsq, out, rows, U, qb, d, l2,
+                                            device, st)
+                           : launch_fma<128>(qf, xf, supers, ulen, xsq, out, rows, U, qb, d,
+                                             l2, device, st);
+    return (int)err;
   }
   // TMA needs 16-byte aligned rows; narrower rows than one 128-byte stage
   // take the byte path too

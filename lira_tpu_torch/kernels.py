@@ -3,9 +3,10 @@
 Each `csrc/<name>.cu` exposes a plain C interface and is compiled by nvcc
 for Hopper (`sm_90a`) into a shared library loaded with ctypes — no
 PyTorch headers, so a build takes seconds.  Libraries are built at first
-use into `csrc/_build/` (git-ignored), named by a hash of their source, so
-an edited source is rebuilt and a stale library is never loaded.  Nothing
-here runs at import time.
+use into `csrc/_build/` (git-ignored), named by a hash of their source and
+of the shared headers (`csrc/*.cuh`), so an edited source or header is
+rebuilt and a stale library is never loaded.  Nothing here runs at
+import time.
 """
 
 from __future__ import annotations
@@ -42,8 +43,14 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    digest = hashlib.sha1((CSRC / f"{name}.cu").read_bytes()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}_{digest}.so"
+    """Where the library of `csrc/<name>.cu` is built: named by a hash of
+    the source and of every `csrc/*.cuh` (the headers it may include), so
+    an edited header rebuilds it too."""
+    h = hashlib.sha1((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode())
+        h.update(header.read_bytes())
+    return BUILD_DIR / f"lib{name}_{h.hexdigest()[:12]}.so"
 
 
 def build(names: list[str]) -> dict[str, dict]:

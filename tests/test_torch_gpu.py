@@ -36,24 +36,31 @@ def cuda():
     return resolve_device("cuda")
 
 
-# (d, qb): d = 100 is no multiple of 16 bytes a row in any dtype (the
-# byte-wise copy), d = 960 (GIST) exceeded shared memory before d was
-# staged in chunks; qb 200 is no multiple of any query tile, qb 8 the
-# engine's smallest block
-@pytest.mark.parametrize("d,qb", [(32, 200), (100, 200), (960, 200), (128, 8)])
+# (d, qb, live slots per block row): d = 100 is no multiple of 16 bytes a
+# row in any dtype (the byte-wise copy), d = 37 no multiple of 4 floats
+# (f32's 4-byte copies), d = 960 (GIST) exceeded shared memory before d
+# was staged in chunks; qb 200 is no multiple of any query tile, qb 8 the
+# engine's smallest block.  A full, a partial and a dead block row; every
+# row dead (the persistent walk finds no live item); one live slot (fewer
+# live items than the card has SMs)
+@pytest.mark.parametrize("d,qb,ulen", [(32, 200, (5, 2, 0)), (100, 200, (5, 2, 0)),
+                                       (960, 200, (5, 2, 0)), (128, 8, (5, 2, 0)),
+                                       (37, 200, (0, 0, 0)), (128, 200, (0, 1, 0))])
 @pytest.mark.parametrize("sel_rows", [32, 64, 128])
 @pytest.mark.parametrize("metric", ["L2", "inner_product"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
-def test_k1_kernel_matches_plain(cuda, dtype, metric, sel_rows, d, qb):
+def test_k1_kernel_matches_plain(cuda, dtype, metric, sel_rows, d, qb, ulen):
     from lira_tpu_torch.engine.block_scan import screen_queries
     from lira_tpu_torch.engine.screen import union_groupmin, union_groupmin_ref
 
+    if dtype == torch.int8 and d % 4:
+        d += 4 - d % 4  # K1 int8 takes d in words of 4 values
     g = torch.Generator().manual_seed(1)
     U, rows, n_super = 5, 3, 6
     x = torch.randn(n_super * 1024, d, generator=g)
     q = torch.randn(rows * qb, d, generator=g)
     supers = torch.randint(0, n_super, (rows, U), generator=g, dtype=torch.int32)
-    ulen = torch.tensor([U, 2, 0], dtype=torch.int32)
+    ulen = torch.tensor(ulen, dtype=torch.int32)
     s = torch.clamp_min(x.abs().amax(0), 1e-30) / 127.0
     q, t_eff, s2 = screen_queries(q.to(cuda), dtype, s.to(cuda), metric)
     if dtype == torch.int8:
@@ -69,7 +76,8 @@ def test_k1_kernel_matches_plain(cuda, dtype, metric, sel_rows, d, qb):
     want = union_groupmin_ref(*args, **kw)
     SG = 1024 // sel_rows
     big = torch.tensor(3e38, dtype=torch.float32, device=cuda)
-    assert bool((got[1, 2 * SG:] == big).all()) and bool((got[2] == big).all())
+    for i, n_live in enumerate(ulen.tolist()):
+        assert bool((got[i, n_live * SG:] == big).all()), i
     xf = args[1].float()
     if dtype == torch.int8:
         tol = 0.0 if metric == "inner_product" else 2 * d * EPS32 * float(((xf * xf) @ s2).max())
@@ -111,13 +119,16 @@ def test_cuda_engine_matches_cpu_engine(cuda, scan_dtype):
     np.testing.assert_array_equal(r_s.ids, np.concatenate([r_g.ids, r_g.ids]))
 
 
+# d = 37: no multiple of 4 floats (4-byte copies; int8 pads to 40), 960:
+# 30 slices of d; 10 groups: no multiple of the 8 groups an item holds
+@pytest.mark.parametrize("d", [37, 128, 960])
 @pytest.mark.parametrize("metric", ["L2", "inner_product"])
 @pytest.mark.parametrize("mode", ["highest", "default", "int8"])
-def test_k2_kernel_matches_plain(cuda, mode, metric):
+def test_k2_kernel_matches_plain(cuda, mode, metric, d):
     from lira_tpu_torch.ops.groupmin import groupmin, groupmin_ref
 
     g = torch.Generator().manual_seed(3)
-    Q, n, n_pad, d = 300, 1200, 1280, 37  # ragged query tile, pad rows, odd d
+    Q, n, n_pad = 300, 1200, 1280  # ragged query tile, pad rows
     x = torch.zeros(n_pad, d)
     x[:n] = torch.randn(n, d, generator=g)
     q = torch.randn(Q, d, generator=g)
