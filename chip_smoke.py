@@ -2,7 +2,9 @@
 of the ported paths from csrc/, holds each against its plain PyTorch
 version, trains the probing model at full size, serves with it through
 every scan path (blocked, per-query xla and pallas, capacity mode, the IVF
-prober), runs the small-scale pipeline, and checks the answers.
+prober), drives the command-line path (index artifacts written and served
+back, knn, build, search, largescale), runs the small-scale pipeline, and
+checks the answers.
 
     python3 chip_smoke.py
 
@@ -13,9 +15,11 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      K1's bf16/int8 functions hold warpgroup MMAs (HGMMA, IGMMA, each
      count > 0), K1's and K2's f32 functions FFMA and no HMMA/HGMMA;
   3. K1 against its plain version on the card: every dtype × metric ×
-     sel_rows at qb=1024, d=128, U=64, and every dtype × metric at qb=256,
-     d=960, U=16, each with a partly dead union, timed (f32 at d=960
-     beside its library call);
+     sel_rows (1, 8, 16, 32, 64, 128) at qb=1024, d=128, U=64, and every
+     dtype × metric at qb=256, d=960, U=16, each with a partly dead union,
+     timed (f32 at d=960 beside its library call); then blocked int8 at
+     d=37 (the engine's zero-padded table) and at sel_rows 16 beside f32
+     on a small index, each exact against the numpy oracle;
   4. K2 against its plain version on the card: f32, bf16-rounded and int8
      × L2 and IP at Q=8192, d=128 over 64 groups, one partly padded, timed;
      K3 against its plain version: k in {1, 20, 36, 128} × L2 and IP at
@@ -50,12 +54,36 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      - the IVF baseline (prober=ivf_probe_matrix, blocked f32) at exactly
        8 buckets a query: recall and ndis beside LIRA's, and the oracle
        over the 8 nearest centroids' buckets;
-  7. `run_smallscale` on the card: 200k×128, 2000 queries with exact
+     - the blocked bf16 engine at sel_rows 1, 8 and 16 (K1's output 32×,
+       4× and 2× the default's): nprobe/ndis equal to phase 6's, recall,
+       K1 launches, the chunk plan, and the peak device memory of the
+       search beyond the engine's tables, held within 2 × _GMIN_BUDGET;
+  7. the CLI path on the same index and threshold (a temp directory):
+     the index written with `save_index_artifacts` and served back, by an
+     engine on `load_index_artifacts` (nprobe/ndis and f32 neighbour sets
+     equal to phase 6's) and by `run_search` in f32, bf16, int8 and
+     capacity int8 (nprobe, ndis and recall equal to phase 6's), the
+     TorchScript export held to the MLP; the corpus written as a dataset
+     and `python -m lira_tpu_torch knn` (exact, 123 K2 launches, equal to
+     phase 5's self-kNN up to ties); `build --calibrate_margin` from that
+     kNN cache (6 epochs at batch 256, n_mul 1) and `search` at its
+     measured margins in three dtypes (recall within 0.01 of phase 6's);
+      `knn` in IVF mode on a 100k cut (recall against the exact kNN); and
+     `largescale` on a 200k cut (a 5% subset, 30 epochs at batch 64) to
+     its sweep CSVs: the MLP trained (the last epoch's kNN recall above
+     the untrained model's at fewer predicted buckets; part 1's recall at
+     the lowest threshold ≥ 0.9), redundancy adding only (part 1's recall
+     and computations ≥ part 0's at every threshold), and the final
+     assignment of 4096 sampled rows equal to a plain numpy recomputation
+     of the redundancy rule from the run's checkpointed MLP, centroids,
+     scaler and native assignment;
+  8. `run_smallscale` on the card: 200k×128, 2000 queries with exact
      ground truth, 256 buckets, k=10, 3 epochs, model redundancy, the
      serving sweep;
-  8. a `{"kernels": [...]}` line (K1 ×3 dtypes, K2 and K3 — one launch and
+  9. a `{"kernels": [...]}` line (K1 ×3 dtypes, K2 and K3 — one launch and
      a whole batch — at the main path's shapes: time, plain time, bound,
-     library yardstick, launches in the main path's run).
+     library yardstick, launches in the main path's run, and for K1 and K2
+     `cli_launches`, their launches in phase 7 in the record's own dtype).
 The last line is {"ok": true, "device": {...}}.
 """
 
@@ -171,14 +199,15 @@ def k1_tolerance(q, corpus, metric, t_eff=None, s2=None) -> float:
 
 
 def phase_k1_grid(dev) -> None:
-    """Every dtype × metric × sel_rows at the bench's qb and d, U=64, and
-    every dtype × metric at d=960 (GIST; beyond shared memory before d was
-    staged in chunks), each with one block row's union cut short (dead
-    slots)."""
+    """Every dtype × metric × sel_rows (1, 8, 16: groups below a wgmma
+    quad's and the FMA tile's lanes; 32, 64, 128) at the bench's qb and d,
+    U=64, and every dtype × metric at d=960 (GIST; beyond shared memory
+    before d was staged in chunks), each with one block row's union cut
+    short (dead slots)."""
     from lira_tpu_torch.engine.block_scan import screen_queries
 
     cases = [  # qb, d, U, rows, n_super, live slots of block row 1, sel_rows
-        (1024, 128, 64, 2, 96, 37, (32, 64, 128)),
+        (1024, 128, 64, 2, 96, 37, (1, 8, 16, 32, 64, 128)),
         (256, 960, 16, 2, 16, 7, (32,)),
     ]
     for qb, d, U, rows, n_super, live1, sels in cases:
@@ -212,6 +241,52 @@ def phase_k1_grid(dev) -> None:
                     if d == 960 and dtype == torch.float32:
                         log(f"K1 d=960 float32 {metric}: kernel {rec['ms']:.3f} ms, library "
                             f"{rec['library_ms']:.3f} ms ({rec['ms'] / rec['library_ms']:.2f}x)")
+
+
+def phase_k1_engine_any_width(dev, n=50_000, d=37, n_bkt=64, n_q=2048, k=10) -> None:
+    """Blocked int8 at d = 37 (the engine zero-pads its int8 table to 40
+    columns) and at sel_rows 16, beside the f32 engine on the same small
+    index: nprobe/ndis equal, K1 launched, and each engine's neighbour sets
+    exact against the numpy oracle over the probed buckets."""
+    from lira_tpu_torch.engine.calibrate import calibrate_block_margin
+    from lira_tpu_torch.engine.screen import union_groupmin
+    from lira_tpu_torch.engine.serve import QueryEngine
+    from lira_tpu_torch.io.datasets import synthetic_dataset
+    from lira_tpu_torch.labels.scaler import scaled_centroid_distances
+    from lira_tpu_torch.models.probing_mlp import ProbingMLP
+    from lira_tpu_torch.partition.assign import build_bucket_layout
+    from lira_tpu_torch.partition.kmeans import kmeans_assign, kmeans_fit
+
+    ds = synthetic_dataset(n_base=n, n_query=n_q, dim=d, n_clusters=n_bkt, compute_gt=False,
+                           seed=5)
+    km = kmeans_fit(ds.base, n_bkt, niter=10, device=dev)
+    layout = build_bucket_layout(kmeans_assign(ds.base, km.centroids, device=dev), n_bkt)
+    _, _, scaler = scaled_centroid_distances(ds.base, None, km.centroids, device=dev)
+    mlp = ProbingMLP(n_bkt, d, generator=torch.Generator().manual_seed(0))
+    idx = dict(x_d=ds.base, x_q=ds.query, layout=layout)
+    ref = None
+    for dtype, sel in (("float32", None), ("int8", None), ("int8", 16)):
+        eng = QueryEngine(ds.base, layout, km.centroids, scaler, mlp, probe_cap=16,
+                          block_q=1024, scan_dtype=dtype, block_sel_rows=sel, device=dev)
+        width = eng._block_state.corpus_flat.shape[1]
+        thr = float(np.quantile(eng.probe(ds.query[:512]), 1.0 - 4 / n_bkt))
+        cal = calibrate_block_margin(eng, ds.query, thr, k, ladder=(0, 2, 4, 8))
+        eng.block_margin = cal.margin
+        union_groupmin.launches = 0
+        r = eng.search(ds.query, thr, k)
+        launches = union_groupmin.launches
+        if launches <= 0:
+            raise AssertionError(f"d={d} {dtype}: K1 was not launched")
+        if ref is None:
+            ref = r
+        elif not (np.array_equal(r.nprobe, ref.nprobe) and np.array_equal(r.ndis, ref.ndis)):
+            raise AssertionError(f"d={d} {dtype} sel_rows={sel}: nprobe/ndis != f32's")
+        tag = f"d={d} {dtype} sel_rows={eng.block_sel_rows}"
+        check_oracle(eng, r, idx, thr, k, tag, np.random.default_rng(3))
+        log(f"engine[{tag}]: screen table width {width}, margin {cal.margin}, K1 launches "
+            f"{launches}, nprobe={r.nprobe.mean():.2f} ndis={r.ndis.mean():.0f}")
+        del eng
+    torch.cuda.empty_cache()
 
 
 def sass_functions(lib_path) -> dict:
@@ -654,7 +729,7 @@ def phase_trained_index(dev, n=1_000_000, d=128, n_bkt=1024, batch=65536, k=10,
     del dist, x_tr, lab
     torch.cuda.empty_cache()
     return dict(x_d=x_d, x_q=x_q, km=km, layout=layout, scaler=scaler,
-                mlp=state.params, k2=k2)
+                mlp=state.params, k2=k2, assign=assign, knn=knn)
 
 
 def k1_main_path_inputs(eng, x_q, thr):
@@ -1077,6 +1152,384 @@ def phase_ivf(dev, idx, run, k=10, m=8):
     torch.cuda.empty_cache()
 
 
+def _dir_bytes(path) -> int:
+    return sum(os.path.getsize(os.path.join(r, f)) for r, _, fs in os.walk(path) for f in fs)
+
+
+def phase_cli(dev, idx, run, k=10, n_epoch=6, n_ivf=100_000, nprobe_ivf=16, n_ls=200_000,
+              n_bkt_ls=256):
+    """The CLI path at full width, all files in a temp directory: the
+    trained index written as artifacts and served back through
+    `run_search` (f32, bf16, int8, capacity int8) at phase 6's threshold
+    and margins; the corpus written as a dataset; `python -m
+    lira_tpu_torch knn` (exact, K2), `build --calibrate_margin` (K2 from
+    the cache, K1 in the calibration) and `search` at the measured margins;
+    `knn` in IVF mode on a 100k cut; `largescale` on a 200k cut.  The
+    commands run in this process through the module's `main`, so the
+    kernels' launch counts are read."""
+    from lira_tpu_torch.__main__ import main as cli
+    from lira_tpu_torch.config import Config
+    from lira_tpu_torch.engine.screen import union_groupmin
+    from lira_tpu_torch.engine.serve import QueryEngine
+    from lira_tpu_torch.io.artifacts import load_index_artifacts, save_index_artifacts
+    from lira_tpu_torch.io.cache import load_knn_cache
+    from lira_tpu_torch.io.datasets import DatasetBundle, write_dataset
+    from lira_tpu_torch.ops.groupmin import groupmin
+    from lira_tpu_torch.ops.distance import l2_to_centroids
+    from lira_tpu_torch.ops.knn import drop_self, exact_knn
+    from lira_tpu_torch.partition.assign import build_bucket_layout
+    from lira_tpu_torch.pipelines.search_cli import run_search
+
+    x_d, x_q, km, scaler, mlp = (idx[key] for key in ("x_d", "x_q", "km", "scaler", "mlp"))
+    thr, gt, res6 = run["thr"], run["gt"], run["results"]
+    n, n_gt, n_q = len(x_d), len(gt), len(x_q)
+    r6 = res6["float32"]["r"]
+    log(f"phase 6 at the CLI's threshold {thr:.6g}: max nprobe {int(r6.nprobe.max())} "
+        f"(probe_cap 128 there, none in run_search)")
+    # ground truth for the first n_gt of the batch; -1 rows never count, so
+    # run_search's avg_recall over the whole batch is n_gt/n_q of theirs
+    gt_pad = np.full((n_q, gt.shape[1]), -1, np.int32)
+    gt_pad[:n_gt] = gt
+    batch = DatasetBundle(name="smoke", base=x_d, query=x_q, groundtruth=gt_pad)
+    cwd = os.getcwd()
+    counts = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)  # the CLIs write ./logs/<dataset>/...
+        try:
+            groupmin.launches = union_groupmin.launches = 0
+            union_groupmin.launches_by_dtype.clear()
+            # 1. the phase-5 index as artifacts, served back through run_search
+            margins = {dt: {"margin": int(res6[dt]["margin"]), "sel_rows": 32}
+                       for dt in ("bfloat16", "int8")}
+            # n_mul 2 (an empty replica column), as phase 6's engines serve it:
+            # the fetch width k·n_mul, and so int8's selection, depends on it
+            d2b = np.full((n, 2), -1, np.int32)
+            d2b[:, 0] = idx["assign"]
+            t0 = time.perf_counter()
+            prefix = save_index_artifacts(
+                tmp, "smoke1m", centroids=km.centroids, data_2_bkt=d2b, x_d=x_d,
+                scaler=scaler, params=mlp, extra_meta={"calibrated_margins": margins})
+            t_w = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            art = load_index_artifacts(tmp, "smoke1m")
+            t_r = time.perf_counter() - t0
+            log(f"artifacts: {_dir_bytes(tmp) / 2**20:.1f} MiB written in {t_w:.2f}s, read "
+                f"in {t_r:.2f}s ({prefix}_*)")
+            ts = torch.jit.load(prefix + "_mlp_2_input.pt", map_location=dev)
+            with torch.no_grad():
+                q = torch.as_tensor(x_q[:4096], device=dev)
+                feats = ((l2_to_centroids(q, torch.as_tensor(km.centroids, device=dev))
+                          - torch.as_tensor(scaler.mean_, device=dev))
+                         / torch.as_tensor(scaler.scale_, device=dev))
+                m_dev = copy.deepcopy(mlp).to(dev)
+                err_pt = float((ts(feats, q) - m_dev(feats, q)).abs().max())
+            log(f"_mlp_2_input.pt (torch.jit.load) vs the MLP: max|diff| {err_pt:.3g}")
+            if err_pt > 1e-5:
+                raise AssertionError(f"TorchScript export differs from the MLP: {err_pt}")
+            del m_dev, ts
+            layout = build_bucket_layout(art["data_2_bkt"], art["manifest"]["n_bkt"])
+            eng = QueryEngine(art["x_d"], layout, art["centroids"], art["scaler"],
+                              art["params"], probe_cap=128, block_q=1024,
+                              block_margin=res6["float32"]["margin"], device=dev)
+            r = eng.search(x_q, thr, k)
+            differ, a_near, b_near = set_diff(x_d, x_q, r.ids, r6.ids)
+            log(f"served from the artifacts [float32]: {differ} of {n_q} queries with other "
+                f"neighbour sets, {a_near} nearer / {b_near} farther beyond ties")
+            if not (np.array_equal(r.nprobe, r6.nprobe) and np.array_equal(r.ndis, r6.ndis)):
+                raise AssertionError("artifacts: nprobe/ndis differ from phase 6's f32 engine")
+            if a_near or b_near:
+                raise AssertionError("artifacts: f32 neighbour sets differ beyond exact ties")
+            del eng, art
+            torch.cuda.empty_cache()
+            for dt, cap in (("float32", False), ("bfloat16", False), ("int8", False),
+                            ("int8", True)):
+                t0 = time.perf_counter()
+                rows = run_search(tmp, "smoke1m", "smoke", k=k, t_min=thr, t_max=thr,
+                                  t_step=1.0, bundle=batch, scan_dtype=dt, capacity=cap,
+                                  device=dev)
+                wall = time.perf_counter() - t0
+                (row,) = rows
+                r = res6[dt]["r"]
+                # run_search's recall_against, on phase 6's ids
+                hits = ((r.ids[:, :, None] == gt_pad[:, None, :k])
+                        & (gt_pad[:, None, :k] >= 0)).any(axis=1)
+                want = (float(r.nprobe.mean()), float(r.ndis.mean()),
+                        float((hits.sum(axis=1) / float(k)).mean()))
+                got = (row["avg_nprobe"], row["avg_cmp"], row["avg_recall"])
+                tag = f"{dt}{' capacity' if cap else ''}"
+                log(f"run_search[{tag}]: nprobe {got[0]:.4f} ndis {got[1]:.1f} recall@{k} "
+                    f"{got[2] * n_q / n_gt:.4f} (phase 6: {want[0]:.4f} {want[1]:.1f} "
+                    f"{want[2] * n_q / n_gt:.4f}); {row['qps']:.0f} QPS; {wall:.1f}s with "
+                    f"the load and the engine build")
+                if got[:2] != want[:2]:
+                    raise AssertionError(f"run_search[{tag}]: nprobe/ndis != phase 6's")
+                if not cap and got[2] != want[2]:
+                    raise AssertionError(f"run_search[{tag}]: recall != phase 6's")
+                if cap and got[2] < want[2] - CAPACITY_RECALL_DROP * n_gt / n_q:
+                    raise AssertionError(f"run_search[{tag}]: recall more than "
+                                         f"{CAPACITY_RECALL_DROP} below phase 6's")
+            counts["serve_k1"] = dict(union_groupmin.launches_by_dtype)
+
+            # 2. the corpus as a dataset, and `knn` (exact: K2 on the card)
+            data = os.path.join(tmp, "data")
+            t0 = time.perf_counter()
+            write_dataset(DatasetBundle(name="smoke", base=x_d, query=x_q[:n_gt],
+                                        groundtruth=gt.astype(np.int32)), data)
+            log(f"dataset smoke ({n}x{x_d.shape[1]}, {n_gt} queries with exact ground "
+                f"truth): {_dir_bytes(data) / 2**20:.1f} MiB in "
+                f"{time.perf_counter() - t0:.1f}s")
+            groupmin.launches = 0
+            t0 = time.perf_counter()
+            cli(["knn", "smoke", data, str(k), "--device", dev.type])
+            t_knn = time.perf_counter() - t0
+            counts["knn_k2"] = groupmin.launches
+            knn = load_knn_cache(data, "smoke", k, n)
+            differ, a_near, b_near = set_diff(x_d, x_d, knn, idx["knn"])
+            log(f"knn CLI (exact, K2): {t_knn:.1f}s, {counts['knn_k2']} K2 launches; against "
+                f"phase 5's self-kNN: {differ} rows differ, {a_near + b_near} beyond ties")
+            if counts["knn_k2"] != -(-n // 8192) or a_near or b_near:
+                raise AssertionError("knn CLI: wrong K2 launch count or kNN != phase 5's")
+
+            # 3. build --calibrate_margin (the knn cache read back), then search
+            union_groupmin.launches = groupmin.launches = 0
+            union_groupmin.launches_by_dtype.clear()
+            t0 = time.perf_counter()
+            cli(["build", "--device", dev.type, "--dataset", "smoke", "--data_path", data,
+                 "--k", str(k),
+                 "--n_bkt", str(len(km.centroids)), "--n_epoch", str(n_epoch),
+                 "--batch_size", "256", "--n_mul", "1", "--duplicate_type", "None",
+                 "--calibrate_margin", "true"])
+            t_build = time.perf_counter() - t0
+            counts["build_k1"] = dict(union_groupmin.launches_by_dtype)
+            counts["build_k2"] = groupmin.launches
+            cfg = Config(dataset="smoke", k=k, n_bkt=len(km.centroids), n_mul=1,
+                         duplicate_type="None").update()
+            with open(os.path.join(cfg.pth_log, cfg.file_name + "_manifest.json")) as f:
+                cal = json.load(f)["calibrated_margins"]
+            with open(os.path.join(cfg.pth_log, cfg.log_name)) as f:
+                stages = [line.strip() for line in f if "time:" in line or "Epoch" in line]
+            log(f"build --calibrate_margin: {t_build:.1f}s, K1 launches {counts['build_k1']}, "
+                f"K2 launches {counts['build_k2']} (the kNN came from the cache); stages: "
+                + "; ".join(stages))
+            log("calibrated margins: " + json.dumps(
+                {dt: {key: c[key] for key in ("margin", "zero_miss_margin", "sel_rows")}
+                 for dt, c in cal.items()}))
+            if counts["build_k2"] or set(counts["build_k1"]) != {"bfloat16", "int8"}:
+                raise AssertionError("build: K2 ran though the kNN was cached, or the "
+                                     "calibration did not launch K1 in bf16 and int8 alone")
+            union_groupmin.launches_by_dtype.clear()
+            for dt in ("float32", "bfloat16", "int8"):
+                (row,) = run_search(os.path.join(tmp, cfg.pth_log), cfg.file_name, "smoke",
+                                    data_path=data, k=k, t_min=thr, t_max=thr, t_step=1.0,
+                                    scan_dtype=dt, device=dev)
+                base = res6[dt]["recall"]
+                log(f"search[{dt}] on the built index: recall@{k} {row['avg_recall']:.4f} "
+                    f"(phase 6 {base:.4f}), nprobe {row['avg_nprobe']:.2f}, ndis "
+                    f"{row['avg_cmp']:.0f}, {row['qps']:.0f} QPS on {n_gt} queries")
+                if abs(row["avg_recall"] - base) > 0.01:
+                    raise AssertionError(f"search[{dt}]: recall {row['avg_recall']} not within "
+                                         f"0.01 of phase 6's {base}")
+            counts["search_k1"] = dict(union_groupmin.launches_by_dtype)
+            if set(counts["search_k1"]) != {"float32", "bfloat16", "int8"}:
+                raise AssertionError("search on the built index did not launch K1 in "
+                                     "every dtype")
+
+            # 4. knn, IVF mode, on a 100k cut (the plain-torch per-query scan)
+            cut = x_d[:n_ivf]
+            write_dataset(DatasetBundle(name="smoke100k", base=cut, query=x_q[:16],
+                                        groundtruth=None), data)
+            t0 = time.perf_counter()
+            path = cli(["knn", "smoke100k", data, str(k), str(nprobe_ivf), "--device",
+                        dev.type])
+            t_ivf = time.perf_counter() - t0
+            ivf = np.fromfile(path, dtype=np.int32).reshape(n_ivf, k)
+            _, ex = exact_knn(cut, cut, k + 1, device=dev)
+            ex = drop_self(ex, k)
+            rec = float((ivf[:, :, None] == ex[:, None, :]).any(2).mean())
+            log(f"knn CLI (IVF, {n_ivf}x{cut.shape[1]}, n_list auto, nprobe {nprobe_ivf}): "
+                f"{t_ivf:.1f}s, recall@{k} {rec:.4f} against the exact kNN")
+            if rec < 0.5:  # a floor that a broken probe or scan cannot reach
+                raise AssertionError(f"IVF knn recall {rec} < 0.5")
+
+            # 5. largescale on a 200k cut, to its sweep CSV
+            cut = x_d[:n_ls]
+            qs = x_q[:2000]
+            _, gt_ls = exact_knn(cut, qs, k, device=dev)
+            write_dataset(DatasetBundle(name="smoke200k", base=cut, query=qs,
+                                        groundtruth=gt_ls.astype(np.int32)), data)
+            groupmin.launches = union_groupmin.launches = 0
+            t0 = time.perf_counter()
+            cli(["largescale", "--device", dev.type, "--dataset", "smoke200k", "--data_path",
+                 data, "--k", str(k),
+                 "--n_bkt", str(n_bkt_ls), "--subset_fraction", "0.05", "--batch_size", "64",
+                 "--n_epoch", "30"])
+            t_ls = time.perf_counter() - t0
+            counts["largescale_k2"] = groupmin.launches
+            cfg = Config(dataset="smoke200k", k=k, n_bkt=n_bkt_ls).update()
+            csvs = sorted(os.listdir(os.path.join(cfg.pth_log,
+                                                  cfg.file_name + "_tuning_threshold")))
+            with open(os.path.join(cfg.pth_log, cfg.file_name + "_tuning_threshold",
+                                   "model_1.csv")) as f:
+                sweep = f.read().strip().splitlines()
+            log(f"largescale CLI ({n_ls}x{cut.shape[1]}, {n_bkt_ls} buckets, 5% subset, "
+                f"30 epochs at batch 64): "
+                f"{t_ls:.1f}s, K2 launches {counts['largescale_k2']}, {csvs}; part 1 "
+                f"{sweep[0]} | {sweep[1]} | {sweep[-1]}")
+            if csvs != ["model_0.csv", "model_1.csv"] or counts["largescale_k2"] <= 0:
+                raise AssertionError("largescale: missing sweep CSVs or no K2 launch")
+            check_largescale(dev, cfg, cut, k)
+        finally:
+            os.chdir(cwd)
+    log(f"CLI phase launches: {counts}")
+    torch.cuda.empty_cache()
+    return counts
+
+
+def read_csv(path):
+    import csv
+
+    with open(path) as f:
+        return list(csv.DictReader(f))
+
+
+def plain_redundancy_row(scores, cur, sigma, n_mul):
+    """The redundancy rule for one row, in numpy: the buckets by score,
+    descending (lower index first among equal scores); n_act = min(#scores
+    > sigma, n_mul − 1); a row whose native bucket ranks at or past n_act
+    keeps it first and adds the n_act best, else it takes the n_keep best
+    (n_act, or n_act + 1 when more buckets passed sigma)."""
+    order = np.argsort(-scores, kind="stable")
+    n_eff = int((scores > sigma).sum())
+    n_act = min(n_eff, n_mul - 1)
+    loc = int(np.nonzero(order == cur)[0][0])
+    if loc >= n_act:
+        row = [cur] + list(order[:n_act])
+    else:
+        row = list(order[: n_act if n_eff == n_act else n_act + 1])
+    return np.array(row + [-1] * (n_mul - len(row)), np.int32)
+
+
+def check_largescale(dev, cfg, x_d, k, n_check=4096, tie=1e-5):
+    """`largescale`'s answer, from its files: the MLP was trained, part 1
+    only adds to part 0, and the final assignment of `n_check` sampled rows
+    equals a plain recomputation of the redundancy rule from the run's own
+    checkpointed MLP, centroids, scaler and native assignment.  The MLP
+    runs over the whole corpus in one batch, as the pipeline's 200k-row
+    batch did; a row is compared only when no score lies within `tie` of
+    sigma or of its neighbour in the first n_mul + 1 ranks (a near-tie's
+    order is the arithmetic's, not the rule's), and those rows are counted."""
+    from lira_tpu_torch.labels.scaler import StandardScaler
+    from lira_tpu_torch.models.checkpoint import load_train_state
+    from lira_tpu_torch.models.train import make_train_state
+    from lira_tpu_torch.ops.distance import l2_to_centroids
+
+    epochs = read_csv(os.path.join(cfg.pth_log, cfg.df_name))
+    first, last = epochs[0], epochs[-1]
+    log(f"largescale epochs: {first['Epoch']} kNN recall {first['KNN Recall']} at "
+        f"{first['nprobe predict']} predicted buckets -> {last['Epoch']} "
+        f"{last['KNN Recall']} at {last['nprobe predict']}")
+    if not (float(last["KNN Recall"]) > float(first["KNN Recall"])
+            and float(last["nprobe predict"]) < float(first["nprobe predict"])):
+        raise AssertionError("largescale: the MLP did not learn (kNN recall did not rise "
+                             "while the predicted buckets fell)")
+    sweep_dir = os.path.join(cfg.pth_log, cfg.file_name + "_tuning_threshold")
+    p0, p1 = (read_csv(os.path.join(sweep_dir, f"model_{i}.csv")) for i in (0, 1))
+    for a, b in zip(p0, p1):
+        if (float(b["Recall"]) < float(a["Recall"]) - 1e-12
+                or float(b["Computations"]) < float(a["Computations"])):
+            raise AssertionError(f"largescale: part 1 below part 0 at threshold "
+                                 f"{a['threshold']}: {b} vs {a}")
+    log(f"largescale sweep at threshold {p0[0]['threshold']}: part 0 nprobe "
+        f"{p0[0]['nprobe']} recall {p0[0]['Recall']} cmp {p0[0]['Computations']}; part 1 "
+        f"nprobe {p1[0]['nprobe']} recall {p1[0]['Recall']} cmp {p1[0]['Computations']}")
+    if float(p1[0]["Recall"]) < 0.9:
+        raise AssertionError(f"largescale: part 1 recall {p1[0]['Recall']} < 0.9 at the "
+                             f"lowest threshold (an untrained MLP gives ~0.1)")
+
+    ckpt = os.path.join(cfg.pth_log, cfg.file_name + "_ckpt")
+    centroids = np.load(os.path.join(ckpt, "kmeans.npz"))["centroids"]
+    native = np.load(os.path.join(ckpt, "assign_full.npz"))["assign"]
+    final = np.load(os.path.join(ckpt, "d2b_final.npz"))["d2b"]
+    scaler = StandardScaler.load(cfg.pth_log, cfg.file_name)
+    state, _ = load_train_state(os.path.join(ckpt, "train_state.npz"),
+                                make_train_state(cfg.seed, cfg.n_bkt, x_d.shape[1],
+                                                 device=dev))
+    with torch.no_grad():
+        xb = torch.as_tensor(x_d, device=dev)
+        feats = ((l2_to_centroids(xb, torch.as_tensor(centroids, device=dev))
+                  - torch.as_tensor(scaler.mean_, device=dev))
+                 / torch.as_tensor(scaler.scale_, device=dev))
+        scores = state.params(feats, xb).cpu().numpy()
+    del xb, feats, state
+    rows = np.random.default_rng(5).choice(len(x_d), n_check, replace=False)
+    compared = near = 0
+    for i in rows:
+        sc = scores[i]
+        top = np.sort(sc)[::-1][: cfg.n_mul + 1]
+        if np.abs(sc - cfg.sigma).min() < tie or (np.diff(top) > -tie).any():
+            near += 1
+            continue
+        want = plain_redundancy_row(sc, int(native[i]), cfg.sigma, cfg.n_mul)
+        if not np.array_equal(final[i], want):
+            raise AssertionError(f"largescale: row {i} assigned {final[i]}, the plain rule "
+                                 f"gives {want}")
+        compared += 1
+    log(f"largescale redundancy: {compared} of {n_check} sampled rows equal to the plain "
+        f"rule ({near} near-ties not compared); replicas per row "
+        f"{float((final >= 0).sum(axis=1).mean()):.3f}")
+    if compared < n_check // 2:
+        raise AssertionError(f"largescale: only {compared} rows free of near-ties")
+
+
+def phase_sel_rows_memory(dev, idx, run, k=10, sels=(1, 8, 16)):
+    """The 1M×128 blocked search at sel_rows 1, 8 and 16 (bf16 screen),
+    where K1's output is 32×, 4× and 2× the default's: the screen budget
+    (`_GMIN_BUDGET`) chunks it and the group selection runs in query slices
+    (`_SEL_BUDGET`).  The margin is phase 6's rescaled to the same rows.
+    nprobe and ndis must equal phase 6's; the peak device memory of the
+    search beyond the engine's tables must stay within 2 × _GMIN_BUDGET."""
+    from lira_tpu_torch.engine import block_scan
+    from lira_tpu_torch.engine.screen import union_groupmin
+    from lira_tpu_torch.engine.serve import QueryEngine
+
+    x_d, x_q, km, layout, scaler, mlp = (idx[key] for key in
+                                         ("x_d", "x_q", "km", "layout", "scaler", "mlp"))
+    thr, gt = run["thr"], run["gt"]
+    r6 = run["results"]["bfloat16"]
+    for sel in sels:
+        margin = int(np.ceil(r6["margin"] * 32 / sel))
+        eng = QueryEngine(x_d, layout, km.centroids, scaler, mlp, probe_cap=128,
+                          scan_impl="blocked", block_q=1024, scan_dtype="bfloat16",
+                          block_sel_rows=sel, block_margin=margin, device=dev)
+        eng.search(x_q[:1024], thr, k)  # warm
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        union_groupmin.launches = 0
+        r = eng.search(x_q, thr, k)
+        peak = torch.cuda.max_memory_allocated() - base
+        plan = block_scan._LAST_CHUNK_PLAN
+        per_block = plan["U"] * plan["sg"] * plan["qb"] * 4
+        log(f"serve[bfloat16 sel_rows={sel}]: margin {margin}, recall@{k} "
+            f"{recall_at(r.ids, gt):.4f} (phase 6 sel_rows=32: {r6['recall']:.4f}), "
+            f"{len(x_q) / r.elapsed:.0f} QPS ({r.elapsed:.3f}s), K1 launches "
+            f"{union_groupmin.launches}; plan {plan}: screen output "
+            f"{per_block / 2**30:.3f} GiB a block row, {plan['rows_per_call']} a call "
+            f"({plan['rows_per_call'] * per_block / 2**30:.2f} GiB); peak device memory "
+            f"of the search beyond the engine's {base / 2**30:.2f} GiB: {peak / 2**30:.2f} "
+            f"GiB (_GMIN_BUDGET {block_scan._GMIN_BUDGET / 2**30:.0f} GiB, _SEL_BUDGET "
+            f"{block_scan._SEL_BUDGET / 2**20:.0f} MiB)")
+        if not (np.array_equal(r.nprobe, r6["r"].nprobe)
+                and np.array_equal(r.ndis, r6["r"].ndis)):
+            raise AssertionError(f"sel_rows={sel}: nprobe/ndis differ from phase 6's")
+        if union_groupmin.launches <= 0 or peak > 2 * block_scan._GMIN_BUDGET:
+            raise AssertionError(f"sel_rows={sel}: no K1 launch, or the search's peak "
+                                 f"memory {peak} exceeds 2 × _GMIN_BUDGET")
+        del eng, r
+        torch.cuda.empty_cache()
+
+
 def phase_smallscale(dev, n=200_000, n_query=2000, d=128, n_bkt=256, k=10, n_epoch=3):
     """The small-scale pipeline's entry point on the card, on a hard-regime
     bundle with exact ground truth."""
@@ -1157,6 +1610,7 @@ def main() -> int:
     # yardsticks, the tolerances) in true fp32, as the port's f32 paths are
     with true_fp32():
         phase_k1_grid(dev)
+        phase_k1_engine_any_width(dev)
         phase_k2_grid(dev)
         phase_k3_grid(dev)
         idx = phase_trained_index(dev)
@@ -1164,9 +1618,18 @@ def main() -> int:
         kernels += phase_per_query(dev, idx, run)
         phase_capacity(dev, idx, run)
         phase_ivf(dev, idx, run)
+        phase_sel_rows_memory(dev, idx, run)
+        cli_counts = phase_cli(dev, idx, run)
         del run
         kernels.append(idx.pop("k2"))
         del idx
+        for rec in kernels:  # the CLI phase's launches beside the main path's
+            if rec["name"].startswith("union_groupmin"):
+                dt = rec["name"].split("[")[1].split(",")[0]  # the record's screen dtype
+                rec["cli_launches"] = sum(cli_counts[step].get(dt, 0) for step in
+                                          ("serve_k1", "build_k1", "search_k1"))
+            elif rec["name"].startswith("groupmin"):  # every CLI K2 call is f32
+                rec["cli_launches"] = cli_counts["knn_k2"] + cli_counts["largescale_k2"]
         phase_smallscale(dev)
     log(smi)
     print(json.dumps({"kernels": kernels}), flush=True)

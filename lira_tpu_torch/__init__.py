@@ -5,17 +5,24 @@ obvious counterpart there.  The package imports torch and numpy only:
 never jax, and never a module of `lira_tpu` (the JAX package is the
 reference the port is tested against, not a dependency).
 
-Layer map of the ported slices (the whole serving engine; training and
-the small-scale pipeline):
+Layer map of the ported slices (the whole serving engine; training; the
+single-chip pipelines and CLIs — `python -m lira_tpu_torch <command>`):
 
-    pipelines/  run_smallscale (build → train → redundancy → sweeps)
+    pipelines/  run_smallscale (build → train → redundancy → sweeps),
+                run_largescale (subset training, full-corpus redundancy,
+                resumable), build_index / run_search (artifacts written
+                once, served many times), compute_knn_cli, extract_k1,
+                batch, parity
     io/         fvecs/ivecs/bvecs, synthetic corpora (byte-identical to
-                lira_tpu's), the self-kNN cache
+                lira_tpu's), the self-kNN cache, the index artifacts and
+                TorchScript export (either package reads the other's), the
+                chunked disk → device reader
     ops/        distances, a top-k with lax.top_k's tie rule, exact kNN,
                 the fused two-round kNN with the K2 group-min kernel
     partition/  K-Means (Lloyd on the card), bucket layout, locality tour
     labels/     kNN → bucket labels, distance-feature standardizer
-    models/     probing MLP as an nn.Module, its training loops, metrics
+    models/     probing MLP as an nn.Module, its training loops, metrics,
+                TrainState checkpoints with lira_tpu's keys
     redundancy/ model-chosen replicas of boundary points
     engine/     QueryEngine with three scan paths: 'blocked' (the K1
                 screen; f32/bf16/int8, and capacity mode: one bf16/int8

@@ -142,3 +142,13 @@ def parse_config(argv: list[str] | None = None, cls=Config) -> Config:
     cfg._explicit = frozenset(vars(ns))  # flag names the user passed
     cfg.update()
     return cfg
+
+
+def split_device(argv: list[str] | None = None) -> tuple[str, list[str]]:
+    """(the `--device` flag, the other arguments) of a CLI of the port:
+    'cuda' unless the caller passes `--device cpu` (lira_tpu picks its
+    backend through JAX_PLATFORMS instead)."""
+    ap = argparse.ArgumentParser(add_help=False)
+    ap.add_argument("--device", default="cuda", help="'cuda' (default) or 'cpu'")
+    ns, rest = ap.parse_known_args(argv)
+    return ns.device, rest

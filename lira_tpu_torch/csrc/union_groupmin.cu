@@ -45,8 +45,12 @@
 //   few supertiles in L2.  Dead slots only write 3e38.
 // * The epilogue stays in registers: a sel_rows group is a run of
 //   accumulator columns, so its min is the thread's own columns plus a
-//   quad shuffle (__shfl_xor 1, 2); only (SG, qb) f32 leaves the SM, in
-//   full 32-byte sectors.  The 1024 x qb score block never exists.
+//   quad shuffle (__shfl_xor 1, 2) for sel_rows >= 8, one shuffle for 4,
+//   none for 1 and 2 (a lane holds two neighbouring columns); only (SG, qb)
+//   f32 leaves the SM.  The 1024 x qb score block never exists.  sel_rows
+//   is any divisor of 128 (the engine's block_sel_rows); at 1..16 the
+//   output is 32..2x that of 32 (at 1, 4 bytes per 256 bf16/int8
+//   operations: bound by the bytes it writes).
 // * What it leaves on the table: the two warpgroups run in lock step, so
 //   each tile's MMAs drain (wgmma.wait_group 0) before its epilogue and
 //   the tensor cores idle through it; ptxas also waits out each d step's
@@ -55,10 +59,10 @@
 //   K2 (fma_groupmin.cuh): persistent CTAs walk the live (block, slot,
 //   128-query tile) items, query tile fastest, each item the supertile's 8
 //   row tiles (or one, when there are few slots) through a 3-stage cp.async
-//   ring (any d); a group's min is
-//   the thread's own rows plus a shuffle reduce-scatter, 8 lanes storing
-//   8 consecutive queries (32 bytes); dead items write 3e38 and load
-//   nothing.
+//   ring (any d); a group's min is the thread's own rows plus a shuffle
+//   reduce-scatter, 8 lanes storing 8 consecutive queries (32 bytes), or,
+//   for sel_rows < 16, xor shuffles among the group's sel_rows lanes; dead
+//   items write 3e38 and load nothing.
 
 #include <cuda.h>  // CUtensorMap and its enums (the encoder is fetched at run time)
 #include <cuda_runtime.h>
@@ -85,7 +89,7 @@ template <int SEL>
 struct K1Job {
   static constexpr int SG = S_ROWS / SEL;       // groups per supertile
   static constexpr int NGT = fma_gm::TR / SEL;  // groups per 128-row tile
-  static constexpr int IPG = SEL / 16;          // a thread's rows (i) per group
+  static constexpr int IPG = SEL / 16;          // a thread's rows (i) per group (SEL >= 16)
   const float* q;
   const float* corpus;
   const float* xsq;
@@ -121,27 +125,47 @@ struct K1Job {
       if (c < q_valid) o[(size_t)g * qb + c] = BIG;
     }
   }
-  // the tile's NGT group minima: lane a gets query 8b + a/2's, and the
-  // even lanes of a half-warp store 8 consecutive queries (32 bytes)
+  // the tile's NGT group minima.  SEL >= 16: a group is IPG of this
+  // thread's rows in all 16 a-lanes, reduced by a shuffle reduce-scatter;
+  // lane a gets query 8b + a/2's, and the even lanes of a half-warp store 8
+  // consecutive queries (32 bytes).  SEL < 16: rows a + 16i of a group sit
+  // in SEL neighbouring a-lanes, reduced by log2(SEL) xor shuffles; the
+  // group's first lane stores its 8 queries.
   __device__ void tile(long long it, const fma_gm::Item& item, int t, float (&acc)[8][8],
                        const float* xn, int a, int b) const {
-    const int c = 8 * b + (a >> 1);  // this lane's query in the tile
-    float* o = block_out(it) + (size_t)t * NGT * qb + c;
+    if constexpr (SEL >= 16) {
+      const int c = 8 * b + (a >> 1);  // this lane's query in the tile
+      float* o = block_out(it) + (size_t)t * NGT * qb + c;
 #pragma unroll
-    for (int g = 0; g < NGT; ++g) {
-      float m[8];
+      for (int g = 0; g < NGT; ++g) {
+        float m[8];
 #pragma unroll
-      for (int j = 0; j < 8; ++j) m[j] = INFINITY;
+        for (int j = 0; j < 8; ++j) m[j] = INFINITY;
 #pragma unroll
-      for (int ii = 0; ii < IPG; ++ii) {
-        const int i = g * IPG + ii;
-        const float x2 = l2 ? xn[a + 16 * i] : 0.0f;
+        for (int ii = 0; ii < IPG; ++ii) {
+          const int i = g * IPG + ii;
+          const float x2 = l2 ? xn[a + 16 * i] : 0.0f;
 #pragma unroll
-        for (int j = 0; j < 8; ++j)  // 2*acc is exact: one rounding
-          m[j] = fminf(m[j], l2 ? __fmaf_rn(-2.0f, acc[i][j], x2) : -acc[i][j]);
+          for (int j = 0; j < 8; ++j)  // 2*acc is exact: one rounding
+            m[j] = fminf(m[j], l2 ? __fmaf_rn(-2.0f, acc[i][j], x2) : -acc[i][j]);
+        }
+        const float v = fma_gm::min16_scatter(m, a);
+        if (!(a & 1) && c < item.q_valid) o[(size_t)g * qb] = v;
       }
-      const float v = fma_gm::min16_scatter(m, a);
-      if (!(a & 1) && c < item.q_valid) o[(size_t)g * qb] = v;
+    } else {
+      float* o = block_out(it) + (size_t)t * NGT * qb + 8 * b;
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const float x2 = l2 ? xn[a + 16 * i] : 0.0f;
+        const int g = (a + 16 * i) / SEL;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          float v = l2 ? __fmaf_rn(-2.0f, acc[i][j], x2) : -acc[i][j];
+#pragma unroll
+          for (int w = 1; w < SEL; w <<= 1) v = fminf(v, __shfl_xor_sync(0xffffffffu, v, w));
+          if (a % SEL == 0 && 8 * b + j < item.q_valid) o[(size_t)g * qb + j] = v;
+        }
+      }
     }
   }
   __device__ void item_end(long long, const fma_gm::Item&, int, int) const {}
@@ -320,7 +344,7 @@ groupmin_wgmma(const uint8_t* __restrict__ q, const uint8_t* __restrict__ corpus
   using Acc = typename std::conditional<INT8, int, float>::type;
   constexpr int SG = S_ROWS / SEL;  // groups per supertile
   constexpr int NG = WN / SEL;      // groups per 256-row chunk
-  constexpr int CPG = SEL / 8;      // 8-column accumulator blocks per group
+  constexpr int CPG = SEL / 8;      // 8-column accumulator blocks per group (SEL >= 8)
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const uint32_t base = smem_u32(smem_raw);
   Stage* ring = reinterpret_cast<Stage*>(smem_raw + ((1024 - (base & 1023)) & 1023));
@@ -455,27 +479,59 @@ groupmin_wgmma(const uint8_t* __restrict__ q, const uint8_t* __restrict__ corpus
         }
         asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
         fence_acc(d);
-        // epilogue: the group minima of this 256-row chunk, in registers
+        // epilogue: the group minima of this 256-row chunk, in registers.
+        // Accumulator block c holds columns 8c + 2*t0 + {0, 1} for rows r0
+        // and r0 + 8: a group of SEL >= 8 columns is CPG blocks of all 4
+        // lanes of a quad (own columns, then two xor shuffles); a group of
+        // SEL <= 4 lies in one lane's pair (SEL 1, 2) or two lanes (4: one
+        // shuffle), and its first lane stores it.
+        if constexpr (SEL >= 8) {
 #pragma unroll
-        for (int g = 0; g < NG; ++g) {
-          float m0 = INFINITY, m1 = INFINITY;
+          for (int g = 0; g < NG; ++g) {
+            float m0 = INFINITY, m1 = INFINITY;
 #pragma unroll
-          for (int cc = 0; cc < CPG; ++cc) {
-            const int c = g * CPG + cc;
-            const float2 xn = l2 ? *reinterpret_cast<const float2*>(&s.xn[8 * c + 2 * t0])
-                                 : make_float2(0.0f, 0.0f);
-            m0 = fminf(m0, fminf(score(d[4 * c], xn.x, t, l2), score(d[4 * c + 1], xn.y, t, l2)));
-            m1 = fminf(m1, fminf(score(d[4 * c + 2], xn.x, t, l2),
-                                 score(d[4 * c + 3], xn.y, t, l2)));
+            for (int cc = 0; cc < CPG; ++cc) {
+              const int c = g * CPG + cc;
+              const float2 xn = l2 ? *reinterpret_cast<const float2*>(&s.xn[8 * c + 2 * t0])
+                                   : make_float2(0.0f, 0.0f);
+              m0 = fminf(m0, fminf(score(d[4 * c], xn.x, t, l2), score(d[4 * c + 1], xn.y, t, l2)));
+              m1 = fminf(m1, fminf(score(d[4 * c + 2], xn.x, t, l2),
+                                   score(d[4 * c + 3], xn.y, t, l2)));
+            }
+            m0 = fminf(m0, __shfl_xor_sync(0xffffffffu, m0, 1));
+            m0 = fminf(m0, __shfl_xor_sync(0xffffffffu, m0, 2));
+            m1 = fminf(m1, __shfl_xor_sync(0xffffffffu, m1, 1));
+            m1 = fminf(m1, __shfl_xor_sync(0xffffffffu, m1, 2));
+            if ((g & 3) == t0) {
+              float* o = out_blk + (size_t)(n * NG + g) * qb;
+              if (r0 < q_valid) o[r0] = m0;
+              if (r0 + 8 < q_valid) o[r0 + 8] = m1;
+            }
           }
-          m0 = fminf(m0, __shfl_xor_sync(0xffffffffu, m0, 1));
-          m0 = fminf(m0, __shfl_xor_sync(0xffffffffu, m0, 2));
-          m1 = fminf(m1, __shfl_xor_sync(0xffffffffu, m1, 1));
-          m1 = fminf(m1, __shfl_xor_sync(0xffffffffu, m1, 2));
-          if ((g & 3) == t0) {
-            float* o = out_blk + (size_t)(n * NG + g) * qb;
-            if (r0 < q_valid) o[r0] = m0;
-            if (r0 + 8 < q_valid) o[r0 + 8] = m1;
+        } else {
+#pragma unroll
+          for (int c = 0; c < WN / 8; ++c) {
+            const int col = 8 * c + 2 * t0;  // this lane's first column
+            const float2 xn = l2 ? *reinterpret_cast<const float2*>(&s.xn[col])
+                                 : make_float2(0.0f, 0.0f);
+            float v[2][2] = {{score(d[4 * c], xn.x, t, l2), score(d[4 * c + 1], xn.y, t, l2)},
+                             {score(d[4 * c + 2], xn.x, t, l2),
+                              score(d[4 * c + 3], xn.y, t, l2)}};
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {  // h: rows r0 and r0 + 8
+              const int r = r0 + 8 * h;
+              float* o = out_blk + (size_t)(n * NG + col / SEL) * qb + r;
+              if constexpr (SEL == 1) {
+                if (r < q_valid) {
+                  o[0] = v[h][0];
+                  o[qb] = v[h][1];
+                }
+              } else {
+                float m = fminf(v[h][0], v[h][1]);
+                if (SEL == 4) m = fminf(m, __shfl_xor_sync(0xffffffffu, m, 1));
+                if ((col % SEL) == 0 && r < q_valid) o[0] = m;
+              }
+            }
           }
         }
         fence_acc(d);
@@ -529,7 +585,12 @@ cudaError_t launch_wgmma(int sel_rows, const void* q, const void* corpus, const 
                          const int* ulen, const float* xsq, const float* t_eff, float* out,
                          int rows, int U, int qb, int row_bytes, int n_rows, int l2,
                          int device, cudaStream_t st) {
-  auto kernel = sel_rows == 32   ? groupmin_wgmma<32, INT8, ALIGNED>
+  auto kernel = sel_rows == 1    ? groupmin_wgmma<1, INT8, ALIGNED>
+                : sel_rows == 2  ? groupmin_wgmma<2, INT8, ALIGNED>
+                : sel_rows == 4  ? groupmin_wgmma<4, INT8, ALIGNED>
+                : sel_rows == 8  ? groupmin_wgmma<8, INT8, ALIGNED>
+                : sel_rows == 16 ? groupmin_wgmma<16, INT8, ALIGNED>
+                : sel_rows == 32 ? groupmin_wgmma<32, INT8, ALIGNED>
                 : sel_rows == 64 ? groupmin_wgmma<64, INT8, ALIGNED>
                                  : groupmin_wgmma<128, INT8, ALIGNED>;
   CUtensorMap tm_q = {}, tm_x = {};
@@ -563,8 +624,9 @@ extern "C" int lira_union_groupmin(int dtype, int l2, const void* q, const void*
                                    const float* xsq, float* out, int rows, int U, int qb,
                                    int d, int n_rows, int sel_rows, int device, void* stream) {
   if (rows <= 0 || rows > 65535 || U <= 0 || U > 65535 || qb <= 0 || d <= 0 ||
-      n_rows <= 0 || n_rows % S_ROWS || (sel_rows != 32 && sel_rows != 64 && sel_rows != 128) ||
-      dtype < 0 || dtype > 2 || (l2 && (xsq == nullptr || reinterpret_cast<uintptr_t>(xsq) % 16)) ||
+      n_rows <= 0 || n_rows % S_ROWS || sel_rows <= 0 || sel_rows > 128 ||
+      128 % sel_rows || dtype < 0 || dtype > 2 ||
+      (l2 && (xsq == nullptr || reinterpret_cast<uintptr_t>(xsq) % 16)) ||
       (dtype == 2 && (d % 4 || t_eff == nullptr)))
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
@@ -572,12 +634,15 @@ extern "C" int lira_union_groupmin(int dtype, int l2, const void* q, const void*
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   if (dtype == 0) {
     const float *qf = static_cast<const float*>(q), *xf = static_cast<const float*>(corpus);
-    err = sel_rows == 32   ? launch_fma<32>(qf, xf, supers, ulen, xsq, out, rows, U, qb, d, l2,
-                                            device, st)
-          : sel_rows == 64 ? launch_fma<64>(qf, xf, supers, ulen, xsq, out, rows, U, qb, d, l2,
-                                            device, st)
-                           : launch_fma<128>(qf, xf, supers, ulen, xsq, out, rows, U, qb, d,
-                                             l2, device, st);
+    auto launch = sel_rows == 1    ? launch_fma<1>
+                  : sel_rows == 2  ? launch_fma<2>
+                  : sel_rows == 4  ? launch_fma<4>
+                  : sel_rows == 8  ? launch_fma<8>
+                  : sel_rows == 16 ? launch_fma<16>
+                  : sel_rows == 32 ? launch_fma<32>
+                  : sel_rows == 64 ? launch_fma<64>
+                                   : launch_fma<128>;
+    err = launch(qf, xf, supers, ulen, xsq, out, rows, U, qb, d, l2, device, st);
     return (int)err;
   }
   // TMA needs 16-byte aligned rows; narrower rows than one 128-byte stage

@@ -38,6 +38,7 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from .. import true_fp32
 from ..ops.distance import l2_to_centroids
@@ -49,9 +50,14 @@ _BIG = 3e38
 # cap on the screen output held live at once, (rows, U·SG, qb) f32: block
 # rows are chunked to it, and when one block's output alone exceeds half of
 # it the union is sliced too (running top-kg merge).  Sized for an 80 GB
-# card beside a 1.5× corpus table and the selection temporaries (~3× the
-# screen output).
+# card beside a 1.5× corpus table and the selection's temporaries.
 _GMIN_BUDGET = 8 << 30
+# bytes of one block's masked screen output, (U·SG, queries) f32, that the
+# group selection takes at a time: it runs over query slices of this size,
+# so its temporaries (the penalty gather, the masked and negated copies and
+# top_k's int64 keys, ~6× the slice) stay bounded whatever sel_rows makes
+# of SG.  A whole block fits at sel_rows ≥ 32 with U ≤ 2048 and qb 1024.
+_SEL_BUDGET = 256 << 20
 # device bytes of the round-2 gather (sub, kg, sel_rows, d) f32 per step
 _R2_BUDGET = 1 << 30
 # set by _screen_rescore: the chunking plan it chose — tests assert the path
@@ -146,20 +152,32 @@ def _dedup_topk_dev(ids: torch.Tensor, neg: torch.Tensor, k: int):
     return out_ids, out_neg
 
 
+def int8_width(d: int) -> int:
+    """Columns of an int8 screen table of d dims: K1's int8 kernel takes
+    whole 32-bit words, so the table is zero-padded to ⌈d/4⌉·4 once."""
+    return -(-d // 4) * 4
+
+
 def screen_queries(q_perm: torch.Tensor, dtype: torch.dtype, dim_scale, metric: str):
     """K1's query operand in the screen dtype: (q_r1, t_eff, s2).
 
     int8: the corpus is x ≈ s_d·x8; the query is q'_d = q_d·s_d, quantized
     with ONE scalar t over the whole padded, permuted batch, so x·q ≈
     t·(x8·q8).  t_eff = t (IP) or 2t (L2) and s2 = s² feed K1's
-    dequantization and norms.  Other dtypes: a cast, and (None, None)."""
+    dequantization and norms; q8 and s2 are zero-padded to the int8
+    table's `int8_width` (a zero column changes no dot and no norm).
+    Other dtypes: a cast, and (None, None)."""
     if dtype != torch.int8:
         return q_perm.to(dtype), None, None
     qp = q_perm * dim_scale[None, :]
     t = torch.clamp_min(qp.abs().max() / 127.0, 1e-30)
     q8 = torch.clamp(torch.round(qp / t), -127, 127).to(torch.int8)
     t_eff = (t if metric == "inner_product" else 2.0 * t).reshape(1).float()
-    return q8, t_eff, (dim_scale * dim_scale).float().contiguous()
+    s2 = (dim_scale * dim_scale).float()
+    pad = int8_width(q8.shape[1]) - q8.shape[1]
+    if pad:
+        q8, s2 = F.pad(q8, (0, pad)), F.pad(s2, (0, pad))
+    return q8.contiguous(), t_eff, s2.contiguous()
 
 
 @true_fp32()
@@ -206,8 +224,13 @@ def _screen_rescore(
             qb=qb, metric=metric, sel_rows=sel_rows, t_eff=t_eff, s2=s2, xsq=screen_sq,
         )
 
-    groups_r2 = corpus_flat_f32.view(-1, sel_rows, d)
+    # round 2 reads the f32 table at the true d; capacity int8's one table
+    # carries the int8 padding, so its queries are padded to match
+    d_r2 = corpus_flat_f32.shape[1]
+    groups_r2 = corpus_flat_f32.view(-1, sel_rows, d_r2)
     q_r2 = q_perm * dim_scale[None, :] if corpus_flat_f32.dtype == torch.int8 else q_perm
+    if d_r2 != d:
+        q_r2 = F.pad(q_r2, (0, d_r2 - d))
     bsq_g = bsq.view(-1, sel_rows)
     ids_g = tiles_ids.view(-1, sel_rows)
     # per-tile bucket map → per-group, with ALL-PAD groups masked to -1:
@@ -237,10 +260,18 @@ def _screen_rescore(
     def select_slice(gmin_b, pen_b, tb_b, supers_b, u0: int):
         """Masked group selection over one U-slice of one block: the global
         top-kg over the full union equals the top-kg of the per-slice
-        top-kgs merged (every global winner wins its own slice)."""
+        top-kgs merged (every global winner wins its own slice).  Queries
+        are selected `_SEL_BUDGET` bytes of groups at a time."""
         tbx = torch.where(tb_b >= 0, tb_b, pen_b.shape[0] - 1)
-        masked = gmin_b + pen_b[tbx]  # (Uc*SG, qb)
-        vals, sel = top_k(-masked.T, min(kg_eff, masked.shape[0]))
+        n_g = gmin_b.shape[0]
+        step = max(1, _SEL_BUDGET // (n_g * 4))
+        vals, sel = [], []
+        for q0 in range(0, gmin_b.shape[1], step):
+            masked = gmin_b[:, q0 : q0 + step] + pen_b[tbx, q0 : q0 + step]  # (Uc*SG, step)
+            v, i = top_k(-masked.T, min(kg_eff, n_g))
+            vals.append(v)
+            sel.append(i)
+        vals, sel = torch.cat(vals), torch.cat(sel)
         ggrp = supers_b.long()[u0 + sel // SG] * SG + sel % SG  # global group index
         return vals, ggrp
 
@@ -251,7 +282,7 @@ def _screen_rescore(
         for s in range(0, q_b.shape[0], sub):
             qs, sg, val = q_b[s : s + sub], ggrp[s : s + sub], valid[s : s + sub]
             n = qs.shape[0]
-            vec = groups_r2[sg].float().view(n, kg_eff * sel_rows, d)  # group gather
+            vec = groups_r2[sg].float().view(n, kg_eff * sel_rows, d_r2)  # group gather
             dot = torch.bmm(vec, qs[:, :, None]).view(n, kg_eff, sel_rows)
             sq = bsq_g[sg]
             score = sq - dot if metric == "inner_product" else sq - 2.0 * dot
@@ -271,7 +302,7 @@ def _screen_rescore(
         "U": U, "n_blocks": n_blocks, "sg": SG, "qb": qb,
     }
 
-    q_blocks = q_r2.view(n_blocks, qb, d)  # round-2 queries (q·s for int8 capacity)
+    q_blocks = q_r2.view(n_blocks, qb, d_r2)  # round-2 queries (q·s for int8 capacity)
     neg_parts, ids_parts = [], []
     if u_chunk >= U:
         for s in range(0, n_blocks, rows_per_call):
@@ -401,7 +432,9 @@ class BlockScanState:
         sorted_pos = order[first:].astype(np.int64)  # padded positions by source id
         sorted_src = ids[order][first:].astype(np.int64)
         out_dtype = scan_dtype if capacity else torch.float32
-        out = torch.zeros((rows_total, d), dtype=out_dtype, device=dev)
+        # capacity int8: the one table is K1's, zero-padded to int8_width
+        width = int8_width(d) if cap_int8 else d
+        out = torch.zeros((rows_total, width), dtype=out_dtype, device=dev)
         for s in range(0, n, chunk_rows):
             e = min(s + chunk_rows, n)
             lo = int(np.searchsorted(sorted_src, s, side="left"))
@@ -414,7 +447,7 @@ class BlockScanState:
             else:
                 chunk = np.ascontiguousarray(x_d[s:e], np.float32)
             vals = torch.as_tensor(chunk, device=dev)
-            out[torch.as_tensor(sorted_pos[lo:hi], device=dev)] = vals[
+            out[torch.as_tensor(sorted_pos[lo:hi], device=dev), :d] = vals[
                 torch.as_tensor(sorted_src[lo:hi] - s, device=dev)
             ].to(out_dtype)
             del vals
@@ -464,15 +497,20 @@ class BlockScanState:
         elif scan_dtype == torch.bfloat16:
             self.corpus_flat = corpus_dev.to(torch.bfloat16)
         elif scan_dtype == torch.int8:
-            # symmetric per-dim quantization x ≈ s_d·x8, on the device
+            # symmetric per-dim quantization x ≈ s_d·x8, on the device,
+            # zero-padded to K1's int8_width
             self.dim_scale = torch.clamp_min(corpus_dev.abs().amax(dim=0), 1e-30) / 127.0
-            self.corpus_flat = torch.clamp(
-                torch.round(corpus_dev / self.dim_scale), -127, 127
-            ).to(torch.int8)
+            x8 = torch.clamp(torch.round(corpus_dev / self.dim_scale), -127, 127).to(torch.int8)
+            pad = int8_width(x8.shape[1]) - x8.shape[1]
+            self.corpus_flat = F.pad(x8, (0, pad)) if pad else x8
+            del x8
         else:
             self.corpus_flat = corpus_dev
         # K1's L2 row norms of the screen table, built once (4 B a row)
-        s2 = None if self.dim_scale is None else self.dim_scale * self.dim_scale
+        s2 = None
+        if self.dim_scale is not None:
+            s2 = self.dim_scale * self.dim_scale
+            s2 = F.pad(s2, (0, self.corpus_flat.shape[1] - s2.shape[0]))
         self.screen_sq = (None if metric == "inner_product"
                           else screen_norms(self.corpus_flat, s2))
 

@@ -17,7 +17,9 @@ wrapper builds it for the call.  On the card bf16 and int8 run on the
 tensor cores (wgmma), f32 on CUDA-core FMAs (no TF32).
 
 Slots with u ≥ ulen[i] are union padding and come out as exactly 3e38.
-Output (rows, U·SG, qb) f32, SG = 1024 / sel_rows — lira_tpu's layout.
+Output (rows, U·SG, qb) f32, SG = 1024 / sel_rows — lira_tpu's layout;
+sel_rows is any divisor of 128.  The int8 kernel takes d % 4 == 0 (a
+32-bit word of the product): the engine pads its int8 table once.
 
 `union_groupmin` launches the kernel for CUDA tensors and takes the plain
 version only for CPU tensors; there is no fallback between the two.
@@ -26,6 +28,7 @@ version only for CPU tensors; there is no fallback between the two.
 from __future__ import annotations
 
 import ctypes
+from collections import Counter
 
 import torch
 
@@ -33,6 +36,7 @@ from .. import true_fp32
 
 S_TILES = 8  # 128-row tiles per supertile
 SUPER_ROWS = S_TILES * 128
+SEL_ROWS = (1, 2, 4, 8, 16, 32, 64, 128)  # group sizes K1 takes: the divisors of 128
 _BIG = 3e38
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _NORM_CHUNK = 1 << 18  # rows widened to f32 at a time by screen_norms
@@ -100,8 +104,8 @@ def _check(q, corpus, supers, ulen, qb, metric, sel_rows, t_eff, s2, xsq):
         raise TypeError("K1: supers and ulen must be int32")
     if metric not in ("L2", "inner_product"):
         raise ValueError(f"K1: metric {metric!r}")
-    if sel_rows not in (32, 64, 128):
-        raise ValueError(f"K1: sel_rows={sel_rows} (the kernel takes 32, 64 or 128)")
+    if sel_rows not in SEL_ROWS:
+        raise ValueError(f"K1: sel_rows={sel_rows} (the kernel takes a divisor of 128)")
     if corpus.dim() != 2 or corpus.shape[0] % SUPER_ROWS:
         raise ValueError(f"K1: corpus {tuple(corpus.shape)} is not whole supertiles")
     if supers.dim() != 2:
@@ -118,7 +122,9 @@ def _check(q, corpus, supers, ulen, qb, metric, sel_rows, t_eff, s2, xsq):
         if s2 is None or s2.shape != (d,) or s2.dtype != torch.float32:
             raise ValueError(f"K1 int8: s2 must be ({d},) float32")
         if d % 4:
-            raise ValueError(f"K1 int8: d={d} must be a multiple of 4")
+            raise ValueError(f"K1 int8: d={d} must be a multiple of 4 (BlockScanState "
+                             f"zero-pads its int8 table, and screen_queries the queries "
+                             f"and s2, to the next multiple)")
     if xsq is not None and (xsq.shape != (corpus.shape[0],) or xsq.dtype != torch.float32):
         raise ValueError(f"K1: xsq must be ({corpus.shape[0]},) float32 (one norm per row)")
     return rows, U, d
@@ -174,7 +180,9 @@ def union_groupmin(q, corpus, supers, ulen, *, qb: int, metric: str, sel_rows: i
     if err != 0:
         raise RuntimeError(f"K1 launch failed: cudaError {err}")
     union_groupmin.launches += 1
+    union_groupmin.launches_by_dtype[str(corpus.dtype).removeprefix("torch.")] += 1
     return out
 
 
 union_groupmin.launches = 0  # kernel launches since the last reset
+union_groupmin.launches_by_dtype = Counter()  # the same, by screen dtype

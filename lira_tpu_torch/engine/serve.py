@@ -34,6 +34,7 @@ from ..models.probing_mlp import ProbingMLP, params_from_jax
 from ..ops.distance import l2_to_centroids, row_sqnorms
 from ..ops.topk import top_k
 from ..partition.assign import BucketLayout
+from .screen import SEL_ROWS
 
 _SCAN_DTYPES = {
     "float32": torch.float32, "bfloat16": torch.bfloat16, "bf16": torch.bfloat16,
@@ -41,6 +42,13 @@ _SCAN_DTYPES = {
 }
 # (B, tiles, tile, d) f32 elements the xla scan gathers per step
 _XLA_STEP_BUDGET = 1 << 26
+
+
+def default_block_sel_rows(scan_dtype) -> int:
+    """The blocked engine's selection granularity when none is given: 64
+    rows a group for the f32 screen, 32 for bf16 and int8."""
+    dt = _SCAN_DTYPES[scan_dtype] if isinstance(scan_dtype, str) else scan_dtype
+    return 64 if dt == torch.float32 else 32
 
 
 @torch.no_grad()
@@ -216,8 +224,8 @@ class QueryEngine:
         self.block_q = block_q
         self.block_margin = block_margin
         if block_sel_rows is None:
-            block_sel_rows = 64 if self.scan_dtype == torch.float32 else 32
-        if not (0 < block_sel_rows <= 128 and 128 % block_sel_rows == 0):
+            block_sel_rows = default_block_sel_rows(self.scan_dtype)
+        if block_sel_rows not in SEL_ROWS:
             raise ValueError(f"block_sel_rows={block_sel_rows}: must be a divisor of 128")
         self.block_sel_rows = block_sel_rows
         self.prober = prober  # e.g. engine.ivf_baseline.ivf_probe_matrix for

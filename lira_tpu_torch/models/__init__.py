@@ -1,3 +1,4 @@
+from .checkpoint import load_train_state, save_train_state
 from .metrics import probing_metrics
 from .probing_mlp import ProbingMLP, params_from_jax, params_to_jax
 from .train import (
@@ -17,5 +18,7 @@ __all__ = [
     "predict_counts",
     "train_state_from_jax",
     "train_state_to_jax",
+    "save_train_state",
+    "load_train_state",
     "probing_metrics",
 ]

@@ -20,7 +20,6 @@ CLI's `--device` flag is the counterpart of lira_tpu's JAX_PLATFORMS).
 
 from __future__ import annotations
 
-import argparse
 import os
 import time
 
@@ -99,11 +98,6 @@ def run_smallscale(
     device=None,
 ) -> dict:
     dev = resolve_device(device)
-    if cfg.run_diagnostics:
-        raise NotImplementedError(
-            "run_diagnostics (lira_tpu/diagnostics.py) is not ported yet: ROADMAP.md "
-            "queue A item 9"
-        )
     fw = log_file
     if bundle is None:
         bundle = load_data(cfg.dataset, data_path=cfg.data_path)
@@ -179,6 +173,31 @@ def run_smallscale(
         outputs = eval_epoch(epoch)
 
     results: dict = {"epoch_rows": epoch_rows, "state": state, "kmeans": km, "scaler": scaler}
+
+    # optional diagnostics: per-query nprobe study + kNN-tail analysis
+    # (reference: utils.py:502-519 / utils.py:438-500)
+    if cfg.run_diagnostics:
+        from ..diagnostics import observe_knn_tail, per_query_nprobe
+        from ..labels.distr import knn_bucket_counts
+
+        cnt_query = knn_bucket_counts(knn_query, data_2_bkt, n_bkt)
+        csv = None
+        if cfg.pth_log and cfg.file_name:
+            csv = os.path.join(cfg.pth_log, f"{cfg.file_name}_perquery.csv")
+        results_pq = per_query_nprobe(outputs, cnt_query, layout.sizes, cfg.k, csv_path=csv)
+        fprint(f">> per-query study: mean nprobe@0.98 = {results_pq[:, 1].mean():.2f}", fw)
+        _, data_outputs_diag = infer(state, train_dist, train_vec, sigma=cfg.sigma)
+        tail = observe_knn_tail(
+            cnt_query, data_outputs_diag, dist_d.cpu().numpy(), knn_query, data_2_bkt,
+            max_points=2000,
+        )
+        fprint(
+            f">> kNN-tail: {len(tail['tail_ids'])} boundary points; "
+            f"probing-rank validity@1 {tail['output_rank_valid'][:2]}, "
+            f"distance-rank validity@1 {tail['dist_rank_valid'][:2]}",
+            fw,
+        )
+        results["per_query"], results["knn_tail"] = results_pq, tail
 
     # (5) baseline sweep (part 0) + redundancy + part-1 sweep
     thresholds = np.arange(cfg.t_min, cfg.t_max + cfg.t_step / 2, cfg.t_step)
@@ -267,15 +286,13 @@ def _epochs_to_csv(rows: list[dict], path: str) -> None:
 
 
 def main(argv=None):
-    from ..config import parse_config
+    from ..config import parse_config, split_device
 
-    ap = argparse.ArgumentParser(add_help=False)
-    ap.add_argument("--device", default="cuda", help="'cuda' (default) or 'cpu'")
-    ns, rest = ap.parse_known_args(argv)
+    device, rest = split_device(argv)
     cfg = parse_config(rest)
     os.makedirs(cfg.pth_log, exist_ok=True)
     with open(os.path.join(cfg.pth_log, cfg.log_name), "a", encoding="utf-8") as fw:
-        run_smallscale(cfg, log_file=fw, serve_sweep=True, device=ns.device)
+        run_smallscale(cfg, log_file=fw, serve_sweep=True, device=device)
         fprint("finish!", fw)
 
 

@@ -37,8 +37,19 @@ K = 5
 def index():
     """tests/test_block_scan.py's _build inputs: n_mul=2 with a replicated
     slice of points (exercises dedup to k distinct)."""
+    return _build_index(16)
+
+
+@pytest.fixture(scope="module")
+def index37():
+    """The same recipe at d = 37, which is not a multiple of 4 (the int8
+    table is zero-padded to 40 columns)."""
+    return _build_index(37)
+
+
+def _build_index(dim):
     rng = np.random.default_rng(43)
-    n, dim, n_bkt, n_mul = 1600, 16, 7, 2
+    n, n_bkt, n_mul = 1600, 7, 2
     x_d = rng.normal(size=(n, dim)).astype(np.float32)
     x_q = rng.normal(size=(33, dim)).astype(np.float32)
     d2b = np.full((n, n_mul), -1, dtype=np.int32)
@@ -101,6 +112,28 @@ def test_blocked_engine_matches_lira_tpu(index, metric, scan_dtype):
                      (metric, scan_dtype, thr))
 
 
+@pytest.mark.parametrize("dim,scan_dtype,sel_rows,store_f32", [
+    (37, "int8", None, True), (37, "int8", None, False), (37, "int8", 16, True),
+    (16, "float32", 8, True), (16, "float32", 16, True), (16, "bfloat16", 8, True),
+    (16, "bfloat16", 16, True), (16, "int8", 8, True), (16, "int8", 16, True),
+    (16, "float32", 1, True), (16, "bfloat16", 1, True), (16, "int8", 1, True),
+])
+def test_blocked_engine_any_width_and_group_size(index, index37, dim, scan_dtype, sel_rows,
+                                                 store_f32):
+    """Blocked int8 at d = 37 (store_f32 and capacity mode), and selection
+    groups of 1, 8 and 16 rows in every dtype: what K1 took only at d % 4 ==
+    0 and sel_rows 32/64/128 before."""
+    ix = index37 if dim == 37 else index
+    e_j, e_t = _engines(ix, scan_dtype=scan_dtype, block_sel_rows=sel_rows,
+                        store_f32=store_f32)
+    if scan_dtype == "int8":
+        assert e_t._block_state.corpus_flat.shape[1] == (40 if dim == 37 else dim)
+    out_j = e_j.probe(ix["x_q"])
+    for thr in _thresholds(out_j):
+        _assert_same(e_j.search(ix["x_q"], thr, K), e_t.search(ix["x_q"], thr, K),
+                     (dim, scan_dtype, sel_rows, store_f32, thr))
+
+
 def test_probe_cap_selection_matches(index):
     e_j, e_t = _engines(index, probe_cap=3, block_q=8)
     thr = _thresholds(e_j.probe(index["x_q"]))[1]
@@ -133,6 +166,17 @@ def test_block_row_and_union_chunking_match(index, monkeypatch):
                      ("union", t))
         plan = tbs._LAST_CHUNK_PLAN
         assert plan["u_chunk"] == 1 and plan["U"] >= 2, plan
+
+
+@pytest.mark.parametrize("sel_rows", [1, 32])
+def test_selection_in_query_slices_matches(index, monkeypatch, sel_rows):
+    """_SEL_BUDGET at one query's groups: the masked selection runs one
+    query at a time, and the results stay those of lira_tpu."""
+    e_j, e_t = _engines(index, scan_dtype="bfloat16", block_sel_rows=sel_rows, block_q=8)
+    monkeypatch.setattr(tbs, "_SEL_BUDGET", 1)
+    for thr in _thresholds(e_j.probe(index["x_q"]))[:2]:
+        _assert_same(e_j.search(index["x_q"], thr, K), e_t.search(index["x_q"], thr, K),
+                     (sel_rows, thr))
 
 
 @pytest.mark.parametrize("scan_dtype", ["float32", "int8"])

@@ -46,7 +46,7 @@ def cuda():
 @pytest.mark.parametrize("d,qb,ulen", [(32, 200, (5, 2, 0)), (100, 200, (5, 2, 0)),
                                        (960, 200, (5, 2, 0)), (128, 8, (5, 2, 0)),
                                        (37, 200, (0, 0, 0)), (128, 200, (0, 1, 0))])
-@pytest.mark.parametrize("sel_rows", [32, 64, 128])
+@pytest.mark.parametrize("sel_rows", [1, 2, 4, 8, 16, 32, 64, 128])
 @pytest.mark.parametrize("metric", ["L2", "inner_product"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
 def test_k1_kernel_matches_plain(cuda, dtype, metric, sel_rows, d, qb, ulen):
@@ -54,7 +54,7 @@ def test_k1_kernel_matches_plain(cuda, dtype, metric, sel_rows, d, qb, ulen):
     from lira_tpu_torch.engine.screen import union_groupmin, union_groupmin_ref
 
     if dtype == torch.int8 and d % 4:
-        d += 4 - d % 4  # K1 int8 takes d in words of 4 values
+        d += 4 - d % 4  # the raw K1 int8 takes d in words of 4 values (the engine pads)
     g = torch.Generator().manual_seed(1)
     U, rows, n_super = 5, 3, 6
     x = torch.randn(n_super * 1024, d, generator=g)
@@ -70,9 +70,11 @@ def test_k1_kernel_matches_plain(cuda, dtype, metric, sel_rows, d, qb, ulen):
     args = [a.to(cuda) for a in (q, x, supers, ulen)]
     kw = dict(qb=qb, metric=metric, sel_rows=sel_rows, t_eff=t_eff, s2=s2)
     before = union_groupmin.launches
+    before_dt = union_groupmin.launches_by_dtype[str(dtype).removeprefix("torch.")]
     got = union_groupmin(*args, **kw)
     torch.cuda.synchronize()
     assert union_groupmin.launches == before + 1
+    assert union_groupmin.launches_by_dtype[str(dtype).removeprefix("torch.")] == before_dt + 1
     want = union_groupmin_ref(*args, **kw)
     SG = 1024 // sel_rows
     big = torch.tensor(3e38, dtype=torch.float32, device=cuda)
@@ -88,21 +90,24 @@ def test_k1_kernel_matches_plain(cuda, dtype, metric, sel_rows, d, qb, ulen):
     assert float((got - want).abs().max()) <= tol
 
 
+# d = 37: the int8 table is zero-padded to 40 columns; sel_rows 1 and 8:
+# groups below a wgmma quad's 8 columns and below the FMA tile's 16 lanes
+@pytest.mark.parametrize("dim,sel_rows", [(32, None), (37, None), (32, 8), (32, 1)])
 @pytest.mark.parametrize("scan_dtype", ["float32", "bfloat16", "int8"])
-def test_cuda_engine_matches_cpu_engine(cuda, scan_dtype):
+def test_cuda_engine_matches_cpu_engine(cuda, scan_dtype, dim, sel_rows):
     from lira_tpu_torch.engine.serve import QueryEngine
     from lira_tpu_torch.labels.scaler import scaled_centroid_distances
     from lira_tpu_torch.models.probing_mlp import ProbingMLP
     from lira_tpu_torch.partition import build_bucket_layout, kmeans_assign, kmeans_fit
 
     rng = np.random.default_rng(2)
-    x = rng.normal(size=(6000, 32)).astype(np.float32)
-    xq = rng.normal(size=(300, 32)).astype(np.float32)
+    x = rng.normal(size=(6000, dim)).astype(np.float32)
+    xq = rng.normal(size=(300, dim)).astype(np.float32)
     km = kmeans_fit(x, 16, niter=5, device="cpu")
     layout = build_bucket_layout(kmeans_assign(x, km.centroids, device="cpu"), 16)
     _, _, sc = scaled_centroid_distances(x, None, km.centroids, device="cpu")
-    mlp = ProbingMLP(16, 32, generator=torch.Generator().manual_seed(0))
-    kw = dict(scan_dtype=scan_dtype, probe_cap=8, block_q=64)
+    mlp = ProbingMLP(16, dim, generator=torch.Generator().manual_seed(0))
+    kw = dict(scan_dtype=scan_dtype, probe_cap=8, block_q=64, block_sel_rows=sel_rows)
     e_cpu = QueryEngine(x, layout, km.centroids, sc, mlp, device="cpu", **kw)
     e_gpu = QueryEngine(x, layout, km.centroids, sc, mlp, device=cuda, **kw)
     v = np.unique(e_cpu.probe(xq))

@@ -138,8 +138,9 @@ def test_k1_wrapper_rejects_what_the_kernel_does_not_take():
     args = (torch.from_numpy(q), torch.from_numpy(x), torch.from_numpy(supers),
             torch.from_numpy(ulen))
     kw = dict(qb=QB, metric="L2")
-    with pytest.raises(ValueError, match="sel_rows"):
-        union_groupmin(*args, sel_rows=16, **kw)
+    for sel_rows in (3, 48):  # not divisors of 128 (every divisor is taken)
+        with pytest.raises(ValueError, match="sel_rows"):
+            union_groupmin(*args, sel_rows=sel_rows, **kw)
     with pytest.raises(TypeError, match="int32"):
         union_groupmin(args[0], args[1], args[2].long(), args[3], sel_rows=32, **kw)
     with pytest.raises(TypeError, match="dtype"):
@@ -155,7 +156,9 @@ def test_k1_cpu_path_is_the_plain_version_and_counts_no_launch():
     x, q, supers, ulen, _, _ = _inputs("float32", "inner_product")
     args = [torch.from_numpy(a) for a in (q, x, supers, ulen)]
     before = union_groupmin.launches
+    by_dtype = dict(union_groupmin.launches_by_dtype)
     got = union_groupmin(*args, qb=QB, metric="inner_product", sel_rows=32)
     want = union_groupmin_ref(*args, qb=QB, metric="inner_product", sel_rows=32)
     assert torch.equal(got, want)
     assert union_groupmin.launches == before
+    assert dict(union_groupmin.launches_by_dtype) == by_dtype
