@@ -13,7 +13,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
   2. the kernel build (nvcc, sm_90a, one process per source, in parallel)
      and what `-Xptxas -v` reports; `cuobjdump -sass` read per function:
      K1's bf16/int8 functions hold warpgroup MMAs (HGMMA, IGMMA, each
-     count > 0), K1's and K2's f32 functions FFMA and no HMMA/HGMMA;
+     count > 0), K1's and K2's f32 functions and K3's FFMA and no
+     HMMA/HGMMA;
   3. K1 against its plain version on the card: every dtype × metric ×
      sel_rows (1, 8, 16, 32, 64, 128) at qb=1024, d=128, U=64, and every
      dtype × metric at qb=256, d=960, U=16, each with a partly dead union,
@@ -24,7 +25,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      × L2 and IP at Q=8192, d=128 over 64 groups, one partly padded, timed;
      K3 against its plain version: k in {1, 20, 36, 128} × L2 and IP at
      B=2048, T=64, d=128 (lists with -1 holes, a tile listed twice, a
-     partly padded tile), and one small case at d=960, timed;
+     partly padded tile, one tile in every query's list), and one small
+     case at d=960, timed, with the list inversion timed apart;
   5. the trained index at full size (bench.py's recipe): a 1M×128
      hard-regime corpus, K-Means to 1024 buckets, the self-kNN (k=10)
      through the fused path and K2 in f32 (123 launches, checked exact on
@@ -44,10 +46,15 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      - the per-query engines, scan_impl "pallas" (K3) and "xla", in f32
        and bf16 on the full 65536-query batch: nprobe/ndis equal to the
        blocked f32 engine's, neighbour sets equal to its up to ties,
-       recall beside it, the oracle, stream == search, 32 K3 launches per
-       batch; K3 alone at the main path's inputs (one 2048-query block and
-       all 32) against its plain version and a gather + bmm yardstick, the
-       xla scan on the same blocks, and the seconds of `_probe_tiles`;
+       recall beside it, the oracle, stream == search, 32 launches per
+       batch of each of K3's three kernels (inversion, scan, merge); K3
+       alone at the main path's inputs (one 2048-query block and all 32)
+       against its plain version and a gather + bmm yardstick, the xla
+       scan on the same blocks, its inversion and merge kernels against
+       their plain versions, and the seconds of `_probe_tiles`; in
+       f32 the batch's K3 time must be below its streamed floor (the bytes
+       of every query's own tiles at 3.35 TB/s), which only a kernel that
+       reads a shared tile once for its queries can reach;
      - capacity mode (store_f32=False) in bf16 and int8: K1 launched,
        nprobe/ndis equal to the store_f32 engine's, recall within 0.01 of
        it, queries whose neighbour sets differ, table bytes, peak memory;
@@ -80,10 +87,12 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
   8. `run_smallscale` on the card: 200k×128, 2000 queries with exact
      ground truth, 256 buckets, k=10, 3 epochs, model redundancy, the
      serving sweep;
-  9. a `{"kernels": [...]}` line (K1 ×3 dtypes, K2 and K3 — one launch and
-     a whole batch — at the main path's shapes: time, plain time, bound,
-     library yardstick, launches in the main path's run, and for K1 and K2
-     `cli_launches`, their launches in phase 7 in the record's own dtype).
+  9. a `{"kernels": [...]}` line (K1 ×3 dtypes, K2, K3 — one launch and a
+     whole batch — and K3's list inversion and merge kernels, at the main
+     path's shapes: time, plain time, bound, library yardstick, launches
+     in the main path's run, for K1 and K2 `cli_launches`, their launches
+     in phase 7 in the record's own dtype, and for K3 the xla scan's time,
+     the streamed floor and the list inversion's time on the same inputs).
 The last line is {"ok": true, "device": {...}}.
 """
 
@@ -111,6 +120,10 @@ K2_SOURCE = "lira_tpu_torch/csrc/groupmin.cu"
 K2_REPLACES = "lira_tpu/ops/knn_pallas.py:39"
 K3_SOURCE = "lira_tpu_torch/csrc/probed_scan.cu"
 K3_REPLACES = "lira_tpu/engine/pallas_scan.py:33"
+# K3's other two launches: the tile lists that lira_tpu's kernel takes by
+# scalar prefetch, turned tile-major, and the final top-k it takes in XLA
+K3_INVERT_REPLACES = "lira_tpu/engine/pallas_scan.py:209"
+K3_MERGE_REPLACES = "lira_tpu/engine/pallas_scan.py:247"
 # the TPU record (BENCH_r05.json; only its hardware-independent columns)
 TPU_RECALL, TPU_NDIS = 0.8370, 7755
 MIN_INT8_RECALL = 0.75  # the trained MLP's floor at the bench's operating point
@@ -308,8 +321,9 @@ def kernel_sass_check(built) -> None:
     """What the built kernels run on, read per function from their SASS:
     K1's bf16 and int8 screens (`groupmin_wgmma`) must hold warpgroup MMAs,
     HGMMA (bf16) and IGMMA (int8); K1's and K2's f32 functions
-    (`k1_groupmin_fma`, `k2_groupmin_fma`) must hold FFMA and no HMMA or
-    HGMMA — f32 stays on CUDA-core FMAs, never TF32.  Fails otherwise."""
+    (`k1_groupmin_fma`, `k2_groupmin_fma`) and K3's (`tile_scan_kernel`)
+    must hold FFMA and no HMMA or HGMMA — f32 stays on CUDA-core FMAs,
+    never TF32.  Fails otherwise."""
     k1 = sass_functions(built["union_groupmin"]["path"])
     wg = "".join(body for name, body in k1.items() if "groupmin_wgmma" in name)
     ops = re.findall(r"\b[A-Z]*GMMA\.[\w.]+", wg)
@@ -318,7 +332,9 @@ def kernel_sass_check(built) -> None:
     if not all(counts.values()):
         raise AssertionError(f"K1's library lacks warpgroup MMAs: {counts}")
     k2 = sass_functions(built["groupmin"]["path"])
-    for lib, tag, funcs in ((k1, "K1", "k1_groupmin_fma"), (k2, "K2", "k2_groupmin_fma")):
+    k3 = sass_functions(built["probed_scan"]["path"])
+    for lib, tag, funcs in ((k1, "K1", "k1_groupmin_fma"), (k2, "K2", "k2_groupmin_fma"),
+                            (k3, "K3", "tile_scan_kernel")):
         found = {name: body for name, body in lib.items() if funcs in name}
         if not found:
             raise AssertionError(f"{tag}: no {funcs} function in its library's SASS")
@@ -516,8 +532,10 @@ def k3_library_ms(q, tiles, corpus, reps, budget=1 << 28):
 
 def k3_measure(q, tiles, corpus, ids, sq, k, metric, reps=5, plain_reps=2):
     """K3 vs its plain version on one input: outputs, and the timing/bound
-    record."""
-    from lira_tpu_torch.engine.pallas_scan import pallas_probed_scan, probed_scan_ref
+    record.  `inversion_ms`: the wrapper's list inversion alone (part of
+    `ms`)."""
+    from lira_tpu_torch.engine.pallas_scan import (invert_tile_lists, pallas_probed_scan,
+                                                   probed_scan_ref)
 
     out = pallas_probed_scan(q, tiles, corpus, ids, sq, k, metric)
     ref = probed_scan_ref(q, tiles, corpus, ids, sq, k, metric)
@@ -525,19 +543,22 @@ def k3_measure(q, tiles, corpus, ids, sq, k, metric, reps=5, plain_reps=2):
     ms = time_ms(lambda: pallas_probed_scan(q, tiles, corpus, ids, sq, k, metric), reps)
     plain_ms = time_ms(lambda: probed_scan_ref(q, tiles, corpus, ids, sq, k, metric),
                        plain_reps)
+    inversion_ms = time_ms(lambda: invert_tile_lists(tiles, corpus.shape[0]), reps)
     ops, nbytes, streamed = k3_work(q, tiles, corpus, k)
     t_ops, t_bytes = ops / PEAK_OPS[torch.float32], nbytes / PEAK_BYTES
     rec = dict(ms=ms, plain_ms=plain_ms, bound_ms=1e3 * max(t_ops, t_bytes),
                bound_by="operations" if t_ops >= t_bytes else "bytes",
                library_ms=k3_library_ms(q, tiles, corpus, reps),
-               streamed_ms=1e3 * streamed / PEAK_BYTES, streamed_gb=streamed / 1e9)
+               streamed_ms=1e3 * streamed / PEAK_BYTES, streamed_gb=streamed / 1e9,
+               inversion_ms=inversion_ms)
     return out, ref, rec
 
 
 def phase_k3_grid(dev) -> None:
     """k in {1, 20, 36, 128} × L2 and IP at the main path's block size and
-    d, lists with -1 holes in the middle, a tile listed twice and a partly
-    padded tile; plus one small case at d=960."""
+    d, lists with -1 holes in the middle, a tile listed twice, a partly
+    padded tile and one tile in every query's list (2048 entries: 128 of
+    the kernel's work items); plus one small case at d=960."""
     g = torch.Generator(device="cpu").manual_seed(9)
     for d, n_tiles, B, T, ks in ((128, 4096, 2048, 64, (1, 20, 36, 128)),
                                  (960, 64, 256, 16, (20,))):
@@ -549,6 +570,7 @@ def phase_k3_grid(dev) -> None:
         tiles[torch.rand(B, T, generator=g) < 0.25] = -1  # holes
         tiles[:, 1] = tiles[:, 0]  # a tile listed twice
         tiles[::7, 2] = n_tiles - 1
+        tiles[:, 4] = 5  # skew: one tile in every query's list
         tiles[3] = -1  # a query with no tile
         tiles, q = tiles.to(dev), torch.randn(B, d, generator=g).to(dev)
         norms = (corpus * corpus).sum(-1)
@@ -565,7 +587,8 @@ def phase_k3_grid(dev) -> None:
                     f"{rec['plain_ms']:.3f} ms, bound {rec['bound_ms']:.4f} ms "
                     f"({rec['bound_by']}), streamed {rec['streamed_gb']:.2f} GB "
                     f"({rec['streamed_ms']:.3f} ms at peak), library "
-                    f"{rec['library_ms']:.3f} ms")
+                    f"{rec['library_ms']:.3f} ms; list inversion {rec['inversion_ms']:.3f} ms "
+                    f"of the kernel's")
                 if err > tol or bad:
                     raise AssertionError(f"K3 d={d} {metric} k={k}: err {err} (tol {tol}), "
                                          f"{bad} queries differ")
@@ -931,9 +954,11 @@ def phase_per_query(dev, idx, run, batch=65536, k=10):
     """QueryEngine(scan_impl="pallas" / "xla") in f32 and bf16 on the
     trained index, held against the blocked f32 engine of the same run, and
     K3 alone at the main path's inputs."""
-    from lira_tpu_torch.engine.pallas_scan import pallas_probed_scan
+    from lira_tpu_torch.engine.pallas_scan import (invert_tile_lists, merge_topk,
+                                                   pallas_probed_scan)
     from lira_tpu_torch.engine.serve import QueryEngine
 
+    k3_wrappers = (invert_tile_lists, pallas_probed_scan, merge_topk)
     x_d, x_q, km, layout, scaler, mlp = (idx[key] for key in
                                          ("x_d", "x_q", "km", "layout", "scaler", "mlp"))
     thr, gt = run["thr"], run["gt"]
@@ -952,17 +977,18 @@ def phase_per_query(dev, idx, run, batch=65536, k=10):
             eng.search(x_q[:2048], thr, k)  # first touch: the kernel load, K3's f32 table
             log(f"engine[{tag}] built and warmed: {time.perf_counter() - t0:.1f}s")
             calls = record_scans(eng) if impl == "pallas" else None
-            pallas_probed_scan.launches = 0
+            for fn in k3_wrappers:
+                fn.launches = 0
             r = eng.search(x_q, thr, k)
-            launches = pallas_probed_scan.launches
+            launches = {fn.__name__: fn.launches for fn in k3_wrappers}
             if calls is not None:
                 del eng._scan
             r_s = eng.search_stream(big, thr, k, batch_size=batch)
-            launches_s = pallas_probed_scan.launches - launches
+            launches_s = {fn.__name__: fn.launches - launches[fn.__name__] for fn in k3_wrappers}
             want = n_blocks if impl == "pallas" else 0
-            log(f"K3 launches [{tag}]: search {launches}, stream {launches_s} "
-                f"(want {want} per batch)")
-            if launches != want or launches_s != 4 * want:
+            log(f"K3 launches [{tag}] (inversion, scan, merge): search {launches}, stream "
+                f"{launches_s} (want {want} each per batch)")
+            if (set(launches.values()) != {want} or set(launches_s.values()) != {4 * want}):
                 raise AssertionError(f"[{tag}] K3 launched {launches}/{launches_s} times")
             if not (np.array_equal(r.nprobe, r_b.nprobe) and np.array_equal(r.ndis, r_b.ndis)):
                 raise AssertionError(f"[{tag}] nprobe/ndis differ from the blocked engine's")
@@ -999,16 +1025,69 @@ def phase_per_query(dev, idx, run, batch=65536, k=10):
     return kernels
 
 
+def k3_parts(q, tiles, corpus, ids, sq, k, metric, table, launches, reps=10):
+    """K3's list inversion and merge kernels alone on one block, each
+    against its plain version: the inversion's items equal up to which of
+    a tile's entries share an item (`items_canonical`), the merge's output
+    exactly (its input: the plain scan's candidates).  Their records."""
+    from lira_tpu_torch.engine.pallas_scan import (QCHUNK, invert_tile_lists,
+                                                   invert_tile_lists_ref, items_canonical,
+                                                   merge_topk, merge_topk_ref, pair_topk_ref)
+
+    n_tiles = corpus.shape[0]
+    B, T = tiles.shape
+    got = invert_tile_lists(tiles, n_tiles)
+    want = invert_tile_lists_ref(tiles, n_tiles)
+    if not all(torch.equal(a, b) for a, b in zip(items_canonical(*got), items_canonical(*want))):
+        raise AssertionError(f"K3 inversion [{table}]: the items differ from the plain version's")
+    inv_ms = time_ms(lambda: invert_tile_lists(tiles, n_tiles), reps)
+    inv_plain_ms = time_ms(lambda: invert_tile_lists_ref(tiles, n_tiles), reps)
+    W = got[0].shape[0]
+    inv_bytes = tiles.numel() * 4 + W * (QCHUNK + 1) * 4  # the lists in, the items out
+    cand_v = torch.empty((B * T, k), dtype=torch.float32, device=q.device)
+    cand_i = torch.empty((B * T, k), dtype=torch.int32, device=q.device)
+    pair_topk_ref(q, *got, corpus, ids, sq, cand_v, cand_i, T, metric)
+    s_k, i_k = merge_topk(cand_v, cand_i, tiles, k)
+    s_r, i_r = merge_topk_ref(cand_v, cand_i, tiles, k)
+    if not (torch.equal(s_k, s_r) and torch.equal(i_k, i_r)):
+        raise AssertionError(f"K3 merge [{table}, k={k}]: not equal to the plain version")
+    merge_ms = time_ms(lambda: merge_topk(cand_v, cand_i, tiles, k), reps)
+    merge_plain_ms = time_ms(lambda: merge_topk_ref(cand_v, cand_i, tiles, k), reps)
+    masked = torch.where((tiles < 0).reshape(B * T, 1), 3e38, cand_v).view(B, T * k)
+    topk_ms = time_ms(lambda: torch.topk(masked, k, dim=1, largest=False), reps)
+    live = int((tiles >= 0).sum())
+    # the merge reads the list heads and what it takes, and writes (B, k)
+    merge_bytes = tiles.numel() * 4 + live * 4 + 2 * B * k * 8
+    log(f"K3 inversion [{table}] at the main path's block (B={B}, T={T}, {live} live "
+        f"entries, {int((got[0] >= 0).sum())} items): {inv_ms:.4f} ms, plain "
+        f"{inv_plain_ms:.4f} ms, bound {1e3 * inv_bytes / PEAK_BYTES:.4f} ms (bytes); merge "
+        f"k={k}: {merge_ms:.4f} ms, plain {merge_plain_ms:.4f} ms, bound "
+        f"{1e3 * merge_bytes / PEAK_BYTES:.4f} ms (bytes), torch.topk {topk_ms:.4f} ms; equal to "
+        f"their plain versions")
+    common = dict(route="cuda", source=K3_SOURCE, max_abs_err=0.0, bound_by="bytes")
+    return [
+        dict(name=f"invert_tile_lists[{table}] one 2048-query block", **common,
+             replaces=K3_INVERT_REPLACES, launches=launches["invert_tile_lists"], ms=inv_ms,
+             plain_ms=inv_plain_ms, bound_ms=1e3 * inv_bytes / PEAK_BYTES, library_ms=None),
+        dict(name=f"merge_topk[{table},k={k}] one 2048-query block", **common,
+             replaces=K3_MERGE_REPLACES, launches=launches["merge_topk"], ms=merge_ms,
+             plain_ms=merge_plain_ms, bound_ms=1e3 * merge_bytes / PEAK_BYTES,
+             library_ms=topk_ms),
+    ]
+
+
 def k3_main_path(eng, calls, launches, dt):
     """K3 alone on the (queries, tile lists) that the engine's counted
     `search` gave it, block by block: one block (the median one of the
     count-sorted batch) and all of them, against the plain version, the
-    gather + bmm yardstick and the xla scan on the same blocks."""
+    gather + bmm yardstick and the xla scan on the same blocks; then its
+    inversion and merge kernels alone on the median block."""
     from lira_tpu_torch.engine.pallas_scan import pallas_probed_scan, probed_scan_ref
     from lira_tpu_torch.engine.serve import _scan_probed_tiles
 
     fetch_k = calls[0][2]
-    if len(calls) != launches or any(f != fetch_k for _, _, f in calls) or fetch_k > 128:
+    if (len(calls) != launches["pallas_probed_scan"] or any(f != fetch_k for _, _, f in calls)
+            or fetch_k > 128):
         raise AssertionError(f"[pallas {dt}] {len(calls)} scans at fetch_k {fetch_k} for "
                              f"{launches} launches")
     blocks = [(q, torch.as_tensor(t, device=eng.device)) for q, t, _ in calls]
@@ -1024,9 +1103,12 @@ def k3_main_path(eng, calls, launches, dt):
         f"max|kernel-plain|={err:.3g} (tol {tol:.3g}), {bad} queries with other ids; "
         f"{rec['ms']:.3f} ms, plain {rec['plain_ms']:.3f} ms, bound {rec['bound_ms']:.4f} ms "
         f"({rec['bound_by']}), streamed {rec['streamed_gb']:.2f} GB ({rec['streamed_ms']:.3f} "
-        f"ms at peak), library {rec['library_ms']:.3f} ms")
+        f"ms at peak), library {rec['library_ms']:.3f} ms; list inversion "
+        f"{rec['inversion_ms']:.3f} ms of the kernel's")
     if err > tol or bad:
         raise AssertionError(f"K3 [{dt}] main-path block: err {err} (tol {tol}), {bad} differ")
+    xla_ms = time_ms(lambda: _scan_probed_tiles(q_m, t_m, eng.corpus, eng.corpus_ids,
+                                                eng.corpus_sq, fetch_k, eng.metric), reps=1)
 
     all_ms = time_ms(lambda: [pallas_probed_scan(q, t, *args, fetch_k, eng.metric)
                               for q, t in blocks], reps=3)
@@ -1055,17 +1137,24 @@ def k3_main_path(eng, calls, launches, dt):
         f"achieved); max|kernel-plain|={err_all:.3g}, {bad_all} queries with other ids")
     if bad_all:
         raise AssertionError(f"K3 [{dt}] whole batch: {bad_all} queries differ")
+    parts = k3_parts(q_m, t_m, *args, fetch_k, eng.metric, table, launches)
+    streamed_ms = 1e3 * streamed / PEAK_BYTES
+    if dt == "float32" and not all_ms < streamed_ms:
+        raise AssertionError(f"K3 [{dt}] whole batch: {all_ms:.2f} ms, not below the streamed "
+                             f"floor {streamed_ms:.2f} ms: shared tiles are not read once")
     name = f"probed_scan[{table},{eng.metric},k={fetch_k}]"
-    common = dict(route="cuda", source=K3_SOURCE, replaces=K3_REPLACES, launches=launches)
+    common = dict(route="cuda", source=K3_SOURCE, replaces=K3_REPLACES,
+                  launches=launches["pallas_probed_scan"])
     return [
         dict(name=f"{name} one 2048-query block", **common, max_abs_err=err, ms=rec["ms"],
              plain_ms=rec["plain_ms"], bound_ms=rec["bound_ms"], bound_by=rec["bound_by"],
-             library_ms=rec["library_ms"]),
+             library_ms=rec["library_ms"], xla_scan_ms=xla_ms,
+             streamed_bound_ms=rec["streamed_ms"], inversion_ms=rec["inversion_ms"]),
         dict(name=f"{name} whole batch ({len(blocks)} launches)", **common,
              max_abs_err=err_all, ms=all_ms, plain_ms=plain_all_ms, bound_ms=bound_all,
              bound_by="operations" if t_ops >= t_bytes else "bytes", library_ms=lib_all_ms,
-             xla_scan_ms=xla_all_ms, streamed_bound_ms=1e3 * streamed / PEAK_BYTES),
-    ]
+             xla_scan_ms=xla_all_ms, streamed_bound_ms=streamed_ms),
+    ] + parts
 
 
 def phase_capacity(dev, idx, run, batch=65536, k=10):

@@ -269,8 +269,8 @@ class QueryEngine:
         else:
             if scan_impl == "pallas" and self.tile != 128:
                 raise ValueError(
-                    f"scan_impl='pallas' requires a 128-row tile layout (K3 keeps "
-                    f"one stack per row of a 128-row tile; got tile={self.tile}); "
+                    f"scan_impl='pallas' requires a 128-row tile layout (K3 scores "
+                    f"128-row tiles, a thread a row; got tile={self.tile}); "
                     f"use scan_impl='xla' for other tiles"
                 )
             padded = layout.gather_vectors(x_d)  # (padded_total, dim)
@@ -345,7 +345,7 @@ class QueryEngine:
         tiles first in bucket order, -1 after; T is the pow2 ceiling of the
         longest list.  lira_tpu's numpy branch (its output equals lira_tpu's
         native OpenMP expander's); the port's own native/ is ROADMAP.md
-        queue A item 10."""
+        queue A item 3."""
         B = probed.shape[0]
         rows, bs = np.nonzero(probed)
         reps = self.tiles_per_bucket[bs]
@@ -372,8 +372,8 @@ class QueryEngine:
     def _scan(self, q: torch.Tensor, tiles: np.ndarray, fetch_k: int):
         tiles = torch.as_tensor(tiles, device=self.device)
         # fetch_k > 128 goes to the xla scan: lira_tpu's routing contract
-        # (serve.py:404, pallas_scan.py:164-169) — K3's per-lane stacks hold
-        # at most 128 rows.  It is not a fallback: no failure takes this road.
+        # (serve.py:404, pallas_scan.py:164-169) — a K3 slot yields at most
+        # its tile's 128 rows.  It is not a fallback: no failure takes this road.
         if self.scan_impl == "pallas" and fetch_k <= 128:
             from .pallas_scan import pallas_probed_scan
 

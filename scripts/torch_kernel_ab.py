@@ -1,5 +1,5 @@
-"""Time the port's K1 and K2 kernels at fixed shapes, for comparing two
-checkouts on one card.
+"""Time the port's K1, K2 and K3 kernels at fixed shapes, for comparing
+two checkouts on one card.
 
     python3 scripts/torch_kernel_ab.py [--tree DIR] [--tag NAME]
 
@@ -7,8 +7,11 @@ Imports `lira_tpu_torch` from DIR (default: this checkout), builds its
 kernels, and prints one line `AB {...}`: ms per call (CUDA events, mean of
 3 after a warm-up) of K2 in each mode (8192 queries × 1M rows, d 128, L2)
 and of K1 in each dtype (8 query blocks of 1024 × U 256 with 1,498 live
-slots, d 128, L2), plus K1 f32 at d 960 with 23 live slots.  Inputs come
-from fixed seeds.  To compare two commits, unpack the other one (`git
+slots, d 128, L2), plus K1 f32 at d 960 with 23 live slots, and of K3
+(`pallas_probed_scan`, the whole call) at chip_smoke.py's K3 grid shape:
+2048 queries × 64-slot lists over 4096 tiles, d 128, k 20, L2, with -1
+holes, a tile listed twice and one tile in every list.  Inputs come from
+fixed seeds.  To compare two commits, unpack the other one (`git
 archive`) into a git-ignored directory and run the script once per tree,
 in turns (A, B, B, A), in one call on one card.
 """
@@ -49,12 +52,13 @@ def main() -> int:
         return 1
     from lira_tpu_torch import true_fp32
     from lira_tpu_torch.engine.block_scan import screen_queries
+    from lira_tpu_torch.engine.pallas_scan import pallas_probed_scan
     from lira_tpu_torch.engine.screen import screen_norms, union_groupmin
     from lira_tpu_torch.kernels import build
     from lira_tpu_torch.ops.groupmin import groupmin
     from lira_tpu_torch.ops.knn_pallas import _pad_and_norms, _quantize_corpus
 
-    build(["union_groupmin", "groupmin"])
+    build(["union_groupmin", "groupmin", "probed_scan"])
     dev = torch.device("cuda")
     res = {"tree": args.tag, "device": torch.cuda.get_device_name(0)}
     with true_fp32():
@@ -99,6 +103,24 @@ def main() -> int:
         x9sq = (x9 * x9).sum(1)
         res["K1 float32 d960"] = time_ms(lambda: union_groupmin(
             q9, x9, s9, u9, qb=256, metric="L2", sel_rows=32, xsq=x9sq), 5)
+        del x9
+
+        g3 = torch.Generator().manual_seed(9)
+        n_tiles, B, T = 4096, 2048, 64
+        corpus = torch.randn(n_tiles, 128, d, generator=g3).to(dev)
+        ids = torch.arange(n_tiles * 128, dtype=torch.int32).view(n_tiles, 128)
+        ids[-1, 77:] = -1
+        tiles = torch.randint(0, n_tiles, (B, T), generator=g3, dtype=torch.int32)
+        tiles[torch.rand(B, T, generator=g3) < 0.25] = -1
+        tiles[:, 1] = tiles[:, 0]
+        tiles[::7, 2] = n_tiles - 1
+        tiles[:, 4] = 5
+        tiles[3] = -1
+        q3 = torch.randn(B, d, generator=g3).to(dev)
+        ids, tiles = ids.to(dev), tiles.to(dev)
+        sq = torch.where(ids >= 0, (corpus * corpus).sum(-1), 3e38)
+        res["K3 float32 k20"] = time_ms(lambda: pallas_probed_scan(q3, tiles, corpus, ids, sq,
+                                                                   20, "L2"), 10)
     print("AB " + json.dumps(res), flush=True)
     return 0
 

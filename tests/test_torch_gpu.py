@@ -1,6 +1,7 @@
-"""Tests that need the card (marker `gpu`): K1, K2 and K3 built with nvcc
-and held against their plain versions, and the CUDA engines (blocked and
-per-query) and the fused kNN against the CPU port.
+"""Tests that need the card (marker `gpu`): K1, K2 and K3 (with its list
+inversion and merge) built with nvcc and held against their plain
+versions, and the CUDA engines (blocked and per-query) and the fused kNN
+against the CPU port.
 They skip without a CUDA device; on an H100 run
 
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
@@ -191,10 +192,12 @@ def test_knn_fused_cuda_matches_cpu(cuda, precision):
 
 @pytest.mark.parametrize("metric", ["L2", "inner_product"])
 @pytest.mark.parametrize("k", [1, 20, 36, 128])
-@pytest.mark.parametrize("d", [37, 128])
+@pytest.mark.parametrize("d", [37, 128, 960])
 def test_k3_kernel_matches_plain(cuda, d, k, metric):
     """Ragged lists with −1 holes in the middle, a tile listed twice, a
-    partly padded tile; d = 37 takes the kernel's 4-byte copies."""
+    partly padded tile, one tile in every list but the empty one (its
+    ≥ 298 entries span ≥ 19 work items of 16); d = 37 takes the kernel's 4-byte copies, d = 960
+    30 chunks of d an item."""
     from lira_tpu_torch.engine.pallas_scan import pallas_probed_scan, probed_scan_ref
 
     g = torch.Generator().manual_seed(5)
@@ -208,6 +211,7 @@ def test_k3_kernel_matches_plain(cuda, d, k, metric):
     tiles[torch.rand(B, T, generator=g) < 0.3] = -1
     tiles[0] = -1  # a query with no tile
     tiles[1, :2] = 4  # one tile twice
+    tiles[2:, 5] = 7  # one tile in every list that has tiles
     q = torch.randn(B, d, generator=g)
     args = [a.to(cuda) for a in (q, tiles, corpus, ids, sq)]
     before = pallas_probed_scan.launches
@@ -225,6 +229,54 @@ def test_k3_kernel_matches_plain(cuda, d, k, metric):
     i_k, i_r = i_k.cpu().numpy(), i_r.cpu().numpy()
     for b in range(B):
         assert sorted(i_k[b]) == sorted(i_r[b]), b
+
+
+@pytest.mark.parametrize("B,T,n_tiles", [(300, 9, 12), (2048, 64, 4096), (5, 3, 100_000)])
+def test_k3_inversion_kernel_matches_plain(cuda, B, T, n_tiles):
+    """Holes, a tile listed twice, one tile in every list (hundreds of
+    entries), and more tiles than the scan kernel's one-CTA prefix sum
+    takes in one pass (100,000)."""
+    from lira_tpu_torch.engine.pallas_scan import (invert_tile_lists, invert_tile_lists_ref,
+                                                   items_canonical)
+
+    g = torch.Generator().manual_seed(7)
+    tiles = torch.randint(0, n_tiles, (B, T), generator=g, dtype=torch.int32)
+    tiles[torch.rand(B, T, generator=g) < 0.3] = -1
+    tiles[0] = -1
+    tiles[1, :2] = 1
+    tiles[:, -1] = 2
+    before = invert_tile_lists.launches
+    got = invert_tile_lists(tiles.to(cuda), n_tiles)
+    torch.cuda.synchronize()
+    assert invert_tile_lists.launches == before + 1
+    want = invert_tile_lists_ref(tiles, n_tiles)
+    for a, b in zip(items_canonical(*got), items_canonical(*want)):
+        assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.parametrize("k", [1, 20, 128])
+def test_k3_merge_kernel_matches_plain(cuda, k):
+    """Sorted candidate lists with equal scores across and within slots,
+    3e38 entries, holes holding garbage, and a query whose every slot is a
+    hole (3e38 / −1 out)."""
+    from lira_tpu_torch.engine.pallas_scan import merge_topk, merge_topk_ref
+
+    g = torch.Generator().manual_seed(8)
+    B, T, kp = 200, 16, min(k, 128)
+    v = torch.randint(0, 50, (B * T, kp), generator=g).float().sort(dim=1).values
+    v[torch.rand(B * T, kp, generator=g) < 0.1] = 3e38
+    v = v.sort(dim=1).values
+    i = torch.randint(0, 10_000, (B * T, kp), generator=g, dtype=torch.int32)
+    tiles = torch.randint(0, 9, (B, T), generator=g, dtype=torch.int32)
+    tiles[torch.rand(B, T, generator=g) < 0.3] = -1
+    tiles[3] = -1
+    v[(tiles < 0).view(-1)] = -1.0  # garbage the merge must not read
+    before = merge_topk.launches
+    s_k, i_k = merge_topk(v.to(cuda), i.to(cuda), tiles.to(cuda), k)
+    torch.cuda.synchronize()
+    assert merge_topk.launches == before + 1
+    s_r, i_r = merge_topk_ref(v, i, tiles, k)
+    assert torch.equal(s_k.cpu(), s_r) and torch.equal(i_k.cpu(), i_r)
 
 
 @pytest.mark.parametrize("scan_dtype", ["float32", "bfloat16"])
