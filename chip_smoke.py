@@ -12,17 +12,18 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
   1. the device: name, count, `nvidia-smi` name and power limit;
   2. the kernel build (nvcc, sm_90a, one process per source, in parallel)
      and what `-Xptxas -v` reports; `cuobjdump -sass` read per function:
-     K1's bf16/int8 functions hold warpgroup MMAs (HGMMA, IGMMA, each
-     count > 0), K1's and K2's f32 functions and K3's FFMA and no
-     HMMA/HGMMA;
+     K1's bf16/int8 functions and K2's "default"/int8 ones hold warpgroup
+     MMAs (HGMMA, IGMMA, each count > 0), K1's and K2's f32 functions and
+     K3's FFMA and no HMMA/HGMMA;
   3. K1 against its plain version on the card: every dtype × metric ×
      sel_rows (1, 8, 16, 32, 64, 128) at qb=1024, d=128, U=64, and every
      dtype × metric at qb=256, d=960, U=16, each with a partly dead union,
      timed (f32 at d=960 beside its library call); then blocked int8 at
      d=37 (the engine's zero-padded table) and at sel_rows 16 beside f32
      on a small index, each exact against the numpy oracle;
-  4. K2 against its plain version on the card: f32, bf16-rounded and int8
-     × L2 and IP at Q=8192, d=128 over 64 groups, one partly padded, timed;
+  4. K2 against its plain version on the card: f32, bf16 (the tables
+     knn_fused passes) and int8 × L2 and IP at Q=8192, d=128 over 64
+     groups, one partly padded, timed;
      K3 against its plain version: k in {1, 20, 36, 128} × L2 and IP at
      B=2048, T=64, d=128 (lists with -1 holes, a tile listed twice, a
      partly padded tile, one tile in every query's list), and one small
@@ -33,7 +34,11 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      1024 sampled rows against a brute-force top-k on the card; the SM
      clock and power sampled while K2 runs), kNN
      labels, scaled distances, and 6 epochs of training at batch 256;
-     K2 at the main path's shape against its plain version;
+     K2 at the main path's shape against its plain version; K2's
+     tensor-core modes ("default" bf16, int8) at the same shape against
+     their plain versions, and the 1M self-kNN in each of them at its
+     default margin (123 launches each, wall s, the share of the f32
+     self-kNN's neighbours missed);
   6. serving with the trained MLP: QueryEngine(scan_impl="blocked",
      probe_cap=128, block_q=1024) in int8, bfloat16 and float32 — margin
      calibration, one 65536-query `search`, a 4-batch `search_stream`;
@@ -87,10 +92,11 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
   8. `run_smallscale` on the card: 200k×128, 2000 queries with exact
      ground truth, 256 buckets, k=10, 3 epochs, model redundancy, the
      serving sweep;
-  9. a `{"kernels": [...]}` line (K1 ×3 dtypes, K2, K3 — one launch and a
+  9. a `{"kernels": [...]}` line (K1 ×3 dtypes, K2 ×3 modes, K3 — one launch and a
      whole batch — and K3's list inversion and merge kernels, at the main
      path's shapes: time, plain time, bound, library yardstick, launches
-     in the main path's run, for K1 and K2 `cli_launches`, their launches
+     in the main path's run (for K2 "default" and int8: their self-kNN),
+     for K1 and K2 `cli_launches`, their launches
      in phase 7 in the record's own dtype, and for K3 the xla scan's time,
      the streamed floor and the list inversion's time on the same inputs).
 The last line is {"ok": true, "device": {...}}.
@@ -320,7 +326,9 @@ def sass_functions(lib_path) -> dict:
 def kernel_sass_check(built) -> None:
     """What the built kernels run on, read per function from their SASS:
     K1's bf16 and int8 screens (`groupmin_wgmma`) must hold warpgroup MMAs,
-    HGMMA (bf16) and IGMMA (int8); K1's and K2's f32 functions
+    HGMMA (bf16) and IGMMA (int8), and so must K2's "default" and int8
+    sweeps (`k2_groupmin_bf16`: HGMMA, `k2_groupmin_int8`: IGMMA); K1's and
+    K2's f32 functions
     (`k1_groupmin_fma`, `k2_groupmin_fma`) and K3's (`tile_scan_kernel`)
     must hold FFMA and no HMMA or HGMMA — f32 stays on CUDA-core FMAs,
     never TF32.  Fails otherwise."""
@@ -332,6 +340,15 @@ def kernel_sass_check(built) -> None:
     if not all(counts.values()):
         raise AssertionError(f"K1's library lacks warpgroup MMAs: {counts}")
     k2 = sass_functions(built["groupmin"]["path"])
+    for func, mma in (("k2_groupmin_bf16", "HGMMA"), ("k2_groupmin_int8", "IGMMA")):
+        found = {name: body for name, body in k2.items() if func in name}
+        if not found:
+            raise AssertionError(f"K2: no {func} function in its library's SASS")
+        for name, body in sorted(found.items()):
+            n_mma = len(re.findall(rf"\b{mma}\.", body))
+            log(f"K2 SASS {name}: {n_mma} {mma}")
+            if n_mma == 0:
+                raise AssertionError(f"K2 {func}: no {mma} (must run on the tensor cores)")
     k3 = sass_functions(built["probed_scan"]["path"])
     for lib, tag, funcs in ((k1, "K1", "k1_groupmin_fma"), (k2, "K2", "k2_groupmin_fma"),
                             (k3, "K3", "tile_scan_kernel")):
@@ -431,6 +448,7 @@ def k2_tolerance(q, base) -> float:
     if base.dtype == torch.int8:
         return 0.0
     d = base.shape[1]
+    base, q = base.float(), q.float()
     xn = float((base * base).sum(1).max())
     qn = float((q * q).sum(1).max())
     return 2.0 * d * EPS32 * (xn + 2.0 * (xn * qn) ** 0.5)
@@ -456,6 +474,10 @@ def phase_k2_grid(dev) -> None:
                 t_eff = (t if metric == "inner_product" else 2.0 * t).reshape(1, 1)
                 out, ref, rec = k2_measure(q, base8, bsq, metric=metric, t_eff=t_eff)
                 tol = k2_tolerance(q, base8)
+            elif mode == "default":  # bf16 tables, as knn_fused passes them
+                qb, xb = qf.to(torch.bfloat16), base_p.to(torch.bfloat16)
+                out, ref, rec = k2_measure(qb, xb, bsq, metric=metric, precision=mode)
+                tol = k2_tolerance(qb, xb)
             else:
                 out, ref, rec = k2_measure(qf, base_p, bsq, metric=metric, precision=mode)
                 tol = k2_tolerance(qf, base_p)
@@ -721,6 +743,7 @@ def phase_trained_index(dev, n=1_000_000, d=128, n_bkt=1024, batch=65536, k=10,
           "all_launches_ms": all_ms, "all_launches_bound_ms": len(tiles) * rec["bound_ms"]}
     del base_p, bsq, tiles
     torch.cuda.empty_cache()
+    k2 = [k2] + phase_k2_tensor_cores(dev, x_d, knn, k, q_tile)
 
     t0 = time.perf_counter()
     labels = knn_bucket_labels(knn, assign.reshape(-1, 1), n_bkt)
@@ -753,6 +776,83 @@ def phase_trained_index(dev, n=1_000_000, d=128, n_bkt=1024, batch=65536, k=10,
     torch.cuda.empty_cache()
     return dict(x_d=x_d, x_q=x_q, km=km, layout=layout, scaler=scaler,
                 mlp=state.params, k2=k2, assign=assign, knn=knn)
+
+
+def missed_rate(knn, ref, dev) -> tuple[float, int]:
+    """The share of `ref`'s neighbours that `knn` lacks (1 − recall), and
+    the rows whose neighbour sets differ."""
+    a = torch.as_tensor(knn, device=dev).long()
+    b = torch.as_tensor(ref, device=dev).long()
+    hit = (b[:, :, None] == a[:, None, :]).any(2)
+    return 1.0 - float(hit.float().mean()), int((~hit).any(1).sum())
+
+
+def phase_k2_tensor_cores(dev, x_d, knn_f32, k, q_tile) -> list:
+    """K2's tensor-core modes on the main path's data.  One launch of each
+    at the main path's shape (the self-kNN's first query tile against the
+    whole padded corpus, as knn_fused gives them: the bf16 table and its
+    slice; the int8 table and the tile quantized) against its plain
+    version (k2_tolerance; int8 exact), timed beside its bound and library
+    call.  Then the 1M self-kNN through the fused path in "default" and in
+    int8 at their default margins (8, 16): K2's launches (counts set to 0
+    just before, read just after), wall seconds, and the share of phase
+    5's f32 neighbours it misses (docs/bf16_screen.md measured 0 on the TPU
+    at these margins, on its own corpus).  Returns the two K2 records."""
+    from lira_tpu_torch.ops.groupmin import groupmin, pad_cols
+    from lira_tpu_torch.ops.knn_pallas import _pad_and_norms, _quantize_corpus, self_knn_fused
+
+    n, d = x_d.shape
+    n_pad = -(-n // 128) * 128
+    recs = []
+    for mode, dt in (("default", "bfloat16"), ("int8", "int8")):
+        base_p, bsq = _pad_and_norms(torch.as_tensor(x_d, device=dev), n_pad, True)
+        if mode == "int8":
+            dim_scale, table = _quantize_corpus(base_p)
+            table = pad_cols(table)
+            qp = base_p[:q_tile] * dim_scale[None, :]
+            t = torch.clamp_min(qp.abs().amax() / 127.0, 1e-30)
+            q = pad_cols(torch.clamp(torch.round(qp / t), -127, 127).to(torch.int8))
+            kw = dict(t_eff=(2.0 * t).reshape(1, 1))
+        else:
+            table = pad_cols(base_p.to(torch.bfloat16))
+            q, kw = table[:q_tile], dict(precision="default")
+        del base_p
+        out, ref, rec = k2_measure(q, table, bsq, metric="L2", reps=5, **kw)
+        err = float((out - ref).abs().max())
+        tol = k2_tolerance(q, table)
+        padded_ok = bool((out[:, -1] < 1e29).all())
+        del out, ref, q, table, bsq
+        torch.cuda.empty_cache()
+        log(f"K2 {mode} at the main path's shape (Q={q_tile}, n_pad={n_pad}, d={d}, L2): "
+            f"max|kernel-plain|={err:.3g} (tol {tol:.3g}), {rec['ms']:.3f} ms, plain "
+            f"{rec['plain_ms']:.3f} ms, bound {rec['bound_ms']:.3f} ms ({rec['bound_by']}), "
+            f"library {rec['library_ms']:.3f} ms, "
+            f"{2.0 * q_tile * n_pad * d / rec['ms'] / 1e9:.1f} T/s")
+        if err > tol or not padded_ok:
+            raise AssertionError(f"K2 {mode} main-path inputs: {err} > {tol}, or the last "
+                                 f"group lost its real rows")
+
+        groupmin.launches = 0
+        groupmin.launches_by_dtype.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        knn = self_knn_fused(x_d, k, precision=mode, q_tile=q_tile, device=dev)
+        wall = time.perf_counter() - t0
+        launches = groupmin.launches
+        miss, rows = missed_rate(knn, knn_f32, dev)
+        log(f"self-kNN k={k} through K2 ({mode}, margin {16 if mode == 'int8' else 8}): "
+            f"{wall:.2f}s, {launches} K2 launches; against the f32 self-kNN: missed-neighbour "
+            f"rate {miss:.3g} ({rows} of {n} rows differ; docs/bf16_screen.md on the TPU: 0)")
+        if (launches != -(-n // q_tile) or groupmin.launches_by_dtype[dt] != launches
+                or knn.shape != (n, k) or int(knn.min()) < 0):
+            raise AssertionError(f"self-kNN {mode}: {launches} K2 launches "
+                                 f"({dict(groupmin.launches_by_dtype)}), shape {knn.shape}")
+        recs.append({"name": f"groupmin[{dt},L2]", "route": "cuda", "source": K2_SOURCE,
+                     "replaces": K2_REPLACES, "launches": launches, "max_abs_err": err,
+                     "ms": rec["ms"], "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+                     "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
+                     "self_knn_s": wall, "missed_rate": miss})
+    return recs
 
 
 def k1_main_path_inputs(eng, x_q, thr):
@@ -1287,6 +1387,7 @@ def phase_cli(dev, idx, run, k=10, n_epoch=6, n_ivf=100_000, nprobe_ivf=16, n_ls
         try:
             groupmin.launches = union_groupmin.launches = 0
             union_groupmin.launches_by_dtype.clear()
+            groupmin.launches_by_dtype.clear()
             # 1. the phase-5 index as artifacts, served back through run_search
             margins = {dt: {"margin": int(res6[dt]["margin"]), "sel_rows": 32}
                        for dt in ("bfloat16", "int8")}
@@ -1467,6 +1568,7 @@ def phase_cli(dev, idx, run, k=10, n_epoch=6, n_ivf=100_000, nprobe_ivf=16, n_ls
             if csvs != ["model_0.csv", "model_1.csv"] or counts["largescale_k2"] <= 0:
                 raise AssertionError("largescale: missing sweep CSVs or no K2 launch")
             check_largescale(dev, cfg, cut, k)
+            counts["k2_by_dtype"] = dict(groupmin.launches_by_dtype)
         finally:
             os.chdir(cwd)
     log(f"CLI phase launches: {counts}")
@@ -1710,15 +1812,16 @@ def main() -> int:
         phase_sel_rows_memory(dev, idx, run)
         cli_counts = phase_cli(dev, idx, run)
         del run
-        kernels.append(idx.pop("k2"))
+        kernels += idx.pop("k2")
         del idx
         for rec in kernels:  # the CLI phase's launches beside the main path's
             if rec["name"].startswith("union_groupmin"):
                 dt = rec["name"].split("[")[1].split(",")[0]  # the record's screen dtype
                 rec["cli_launches"] = sum(cli_counts[step].get(dt, 0) for step in
                                           ("serve_k1", "build_k1", "search_k1"))
-            elif rec["name"].startswith("groupmin"):  # every CLI K2 call is f32
-                rec["cli_launches"] = cli_counts["knn_k2"] + cli_counts["largescale_k2"]
+            elif rec["name"].startswith("groupmin"):
+                dt = rec["name"].split("[")[1].split(",")[0]
+                rec["cli_launches"] = cli_counts["k2_by_dtype"].get(dt, 0)
         phase_smallscale(dev)
     log(smi)
     print(json.dumps({"kernels": kernels}), flush=True)

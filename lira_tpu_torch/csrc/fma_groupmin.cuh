@@ -1,5 +1,5 @@
 // The f32 mainloop shared by K1 (union_groupmin.cu, f32 mode) and K2
-// (groupmin.cu, "highest" and "default" modes): a product of queries and
+// (groupmin.cu, "highest" mode): a product of queries and
 // corpus rows, both d-contiguous ("NT"), on CUDA-core FMAs (no TF32: the
 // reference's f32 is "highest"), reduced to group minima in registers.
 //
@@ -35,8 +35,6 @@
 //   contiguous bytes per quarter-warp.  No transpose is needed, so the
 //   global->shared copy stays asynchronous.
 // * Arithmetic: fmaf only, each sum taking its k in ascending order.
-//   ROUND rounds the staged values to bf16 first (K2's "default": bf16
-//   inputs, f32 sums), each thread its own copies, before the barrier.
 // * Epilogue: the job's `tile` gets the 64 sums and the stage's norms
 //   while the stage is still intact (it is refilled only after the next
 //   barrier), and `item_end` runs after an item's last tile.
@@ -100,13 +98,6 @@ template <int N>
 __device__ __forceinline__ void cp_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
-// v rounded to bf16 (to nearest even), as __float2bfloat16_rn for finite v,
-// in three integer operations on the ALU instead of a conversion each way
-__device__ __forceinline__ float bf16_round(float v) {
-  const uint32_t u = __float_as_uint(v);
-  return __uint_as_float((u + 0x7fffu + ((u >> 16) & 1u)) & 0xffff0000u);
-}
-
 // Fill one stage: slice k0 of 128 rows starting at x (row stride d) and of
 // the item's queries.  Thread e's copies: units of VEC floats e + 256r,
 // each row BK/VEC units long (neighbouring threads, neighbouring addresses).
@@ -132,26 +123,6 @@ __device__ __forceinline__ void load_stage(Stage& s, const float* x, const float
     const float* qs = in_q ? q + (size_t)row * d + k : q;
     if constexpr (VEC == 4) cp16(&s.q[row * LD + col], qs, in_q ? 16 : 0);
     else cp4(&s.q[row * LD + col], qs, in_q ? 4 : 0);
-  }
-}
-
-// bf16-round this thread's own copies of a landed stage (the mapping of
-// load_stage), before the barrier that publishes it
-template <int VEC>
-__device__ __forceinline__ void round_stage(Stage& s) {
-  const int tid = threadIdx.x;
-  constexpr int PER_ROW = BK / VEC;
-#pragma unroll
-  for (int r = 0; r < TR * PER_ROW / THREADS; ++r) {
-    const int e = tid + r * THREADS, at = (e / PER_ROW) * LD + (e % PER_ROW) * VEC;
-#pragma unroll
-    for (int v = 0; v < VEC; ++v) s.x[at + v] = bf16_round(s.x[at + v]);
-  }
-#pragma unroll
-  for (int r = 0; r < TQ * PER_ROW / THREADS; ++r) {
-    const int e = tid + r * THREADS, at = (e / PER_ROW) * LD + (e % PER_ROW) * VEC;
-#pragma unroll
-    for (int v = 0; v < VEC; ++v) s.q[at + v] = bf16_round(s.q[at + v]);
   }
 }
 
@@ -205,7 +176,7 @@ __device__ __forceinline__ float min16_scatter(const float (&m)[8], int a) {
 //   void dead(long long it);             called for each dead item
 //   void tile(long long it, const Item&, int t, float (&acc)[8][8], const float* xn, a, b);
 //   void item_end(long long it, const Item&, a, b);
-template <int VEC, bool ROUND, class Job>
+template <int VEC, class Job>
 __device__ __forceinline__ void run(Job& job, unsigned char* smem) {
   Stage* ring = reinterpret_cast<Stage*>(smem);
   const int tid = threadIdx.x, a = tid % 16, b = tid / 16, d = job.d;
@@ -257,7 +228,6 @@ __device__ __forceinline__ void run(Job& job, unsigned char* smem) {
       for (int kc = 0; kc < nk; ++kc, ++step) {
         Stage& cur = ring[step % STAGES];
         cp_wait<STAGES - 2>();  // this step's copies (this thread's) landed
-        if constexpr (ROUND) round_stage<VEC>(cur);
         __syncthreads();        // everyone's landed; step-1's stage is free
         issue((step + STAGES - 1) % STAGES);
         mma_stage(cur, acc, a, b);

@@ -5,7 +5,9 @@ two checkouts on one card.
 
 Imports `lira_tpu_torch` from DIR (default: this checkout), builds its
 kernels, and prints one line `AB {...}`: ms per call (CUDA events, mean of
-3 after a warm-up) of K2 in each mode (8192 queries × 1M rows, d 128, L2)
+3 after a warm-up) of K2 in each mode (8192 queries × 1M rows, d 128, L2;
+"default" on f32 inputs, which the wrapper rounds to bf16, and, where the
+tree's K2 takes them, on the bf16 table as knn_fused passes it)
 and of K1 in each dtype (8 query blocks of 1024 × U 256 with 1,498 live
 slots, d 128, L2), plus K1 f32 at d 960 with 23 live slots, and of K3
 (`pallas_probed_scan`, the whole call) at chip_smoke.py's K3 grid shape:
@@ -70,6 +72,18 @@ def main() -> int:
         for mode in ("highest", "default"):
             res[f"K2 {mode}"] = time_ms(lambda: groupmin(q, base_p, bsq, metric="L2",
                                                          precision=mode))
+        # "default" on the bf16 table and its slice, as knn_fused passes them
+        # since K2's tensor-core rebuild (earlier trees take f32 only)
+        base_b = base_p.to(torch.bfloat16)
+        q_b = base_b[:8192]
+        try:
+            groupmin(q_b, base_b, bsq, metric="L2", precision="default")
+        except TypeError:
+            pass
+        else:
+            res["K2 default bf16 table"] = time_ms(lambda: groupmin(
+                q_b, base_b, bsq, metric="L2", precision="default"))
+        del base_b, q_b
         dim_scale, base8 = _quantize_corpus(base_p)
         qp = q * dim_scale[None, :]
         t = torch.clamp_min(qp.abs().amax() / 127.0, 1e-30)

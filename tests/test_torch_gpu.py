@@ -125,16 +125,20 @@ def test_cuda_engine_matches_cpu_engine(cuda, scan_dtype, dim, sel_rows):
     np.testing.assert_array_equal(r_s.ids, np.concatenate([r_g.ids, r_g.ids]))
 
 
-# d = 37: no multiple of 4 floats (4-byte copies; int8 pads to 40), 960:
-# 30 slices of d; 10 groups: no multiple of the 8 groups an item holds
+# d = 37: no multiple of 4 floats (4-byte copies; the tensor cores' tables
+# pad to 64 bf16 / 128 int8 columns), 960: 30 slices of d, 15 bf16 steps;
+# 10 groups: no multiple of the 8 groups an item holds; 9: odd (the last
+# 256-row tensor-core tile holds one group); Q = 1: one query row of 128
+@pytest.mark.parametrize("Q,n_groups", [(300, 10), (300, 9), (1, 10)])
 @pytest.mark.parametrize("d", [37, 128, 960])
 @pytest.mark.parametrize("metric", ["L2", "inner_product"])
 @pytest.mark.parametrize("mode", ["highest", "default", "int8"])
-def test_k2_kernel_matches_plain(cuda, mode, metric, d):
+def test_k2_kernel_matches_plain(cuda, mode, metric, d, Q, n_groups):
     from lira_tpu_torch.ops.groupmin import groupmin, groupmin_ref
 
     g = torch.Generator().manual_seed(3)
-    Q, n, n_pad = 300, 1200, 1280  # ragged query tile, pad rows
+    n_pad = 128 * n_groups
+    n = n_pad - 80  # ragged query tile, pad rows
     x = torch.zeros(n_pad, d)
     x[:n] = torch.randn(n, d, generator=g)
     q = torch.randn(Q, d, generator=g)
@@ -164,6 +168,22 @@ def test_k2_kernel_matches_plain(cuda, mode, metric, d):
         qn = float((qf * qf).sum(1).max())
         tol = 2 * d * EPS32 * (xn + 2 * (xn * qn) ** 0.5)
     assert float((got - want).abs().max()) <= tol
+
+
+def test_k2_bf16_table_same_as_f32_inputs(cuda):
+    """"default" on f32 inputs (the wrapper rounds and pads them) and on
+    their padded bf16 tables (as knn_fused passes them): the same launch,
+    bit for bit."""
+    from lira_tpu_torch.ops.groupmin import groupmin, pad_cols
+
+    g = torch.Generator().manual_seed(5)
+    x = torch.randn(9 * 128, 100, generator=g).to(cuda)
+    q = torch.randn(257, 100, generator=g).to(cuda)
+    bsq = (x * x).sum(1)
+    kw = dict(metric="L2", precision="default")
+    a = groupmin(q, x, bsq, **kw)
+    b = groupmin(pad_cols(q.to(torch.bfloat16)), pad_cols(x.to(torch.bfloat16)), bsq, **kw)
+    assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("precision", ["highest", "default", "int8"])

@@ -4,6 +4,8 @@ inputs (lira_tpu's Pallas kernel in interpret mode).
 Tolerances:
   * K2 group minima, "highest": the two sum the same exact f32 products in
     different orders, so |difference| ≤ 2·d·eps32·(max‖x‖² + 2·max‖x‖·max‖q‖).
+    "default" the same, against lira_tpu's kernel at "highest" on
+    bf16-rounded inputs (the TPU's default pass: bf16 products, f32 sums).
     int8: both take an exact integer dot and round it to f32.  IP is then
     bit-equal; for L2, XLA on the CPU contracts bsq − t·dot into one FMA
     where the port rounds t·dot first, so the two are one rounding apart:
@@ -29,7 +31,7 @@ from lira_tpu.ops import knn as jknn
 from lira_tpu.ops import knn_pallas as jkp
 from lira_tpu_torch.ops import knn as tknn
 from lira_tpu_torch.ops import knn_pallas as tkp
-from lira_tpu_torch.ops.groupmin import groupmin, groupmin_ref
+from lira_tpu_torch.ops.groupmin import groupmin, groupmin_ref, pad_cols
 
 import torch
 
@@ -84,13 +86,25 @@ def _k2_inputs(metric, int8):
     return q8, x8, bsq, t_eff
 
 
+def _bf16(a):
+    """f32 values rounded to bf16 (to nearest even), as f32."""
+    return torch.from_numpy(a).to(torch.bfloat16).float().numpy()
+
+
 @pytest.mark.parametrize("metric", ["L2", "inner_product"])
-@pytest.mark.parametrize("mode", ["highest", "int8"])
+@pytest.mark.parametrize("mode", ["highest", "default", "int8"])
 def test_k2_plain_matches_pallas_interpret(metric, mode):
     q, x, bsq, t = _k2_inputs(metric, mode == "int8")
-    want = _pallas_k2(q, x, bsq, metric, t).T  # (Q, n_groups)
+    if mode == "default":  # the TPU's default pass: bf16 inputs, f32 sums
+        want = _pallas_k2(_bf16(q), _bf16(x), bsq, metric).T
+        q_r, x_r = _bf16(q), _bf16(x)
+    else:
+        want = _pallas_k2(q, x, bsq, metric, t).T  # (Q, n_groups)
+        q_r, x_r = q, x
     args = [torch.from_numpy(a) for a in (q, x, bsq)]
     kw = dict(metric=metric, t_eff=None if t is None else torch.from_numpy(t))
+    if mode != "int8":
+        kw["precision"] = mode
     got = groupmin(*args, **kw).numpy()  # CPU tensors: the plain version
     np.testing.assert_array_equal(got, groupmin_ref(*args, **kw).numpy())
     assert got.shape == (16, 4)
@@ -102,10 +116,38 @@ def test_k2_plain_matches_pallas_interpret(metric, mode):
         assert np.abs(got - want).max() <= tol
     else:
         d = x.shape[1]
-        xn = float((x * x).sum(1).max())
-        qn = float((q * q).sum(1).max())
+        xn = float((x_r * x_r).sum(1).max())
+        qn = float((q_r * q_r).sum(1).max())
         tol = 2 * d * EPS32 * (xn + 2 * (xn * qn) ** 0.5)
         assert np.abs(got - want).max() <= tol
+
+
+@pytest.mark.parametrize("metric", ["L2", "inner_product"])
+def test_k2_default_plain_same_on_bf16_and_padded_tables(metric):
+    """groupmin's plain route at "default" gives bit for bit the same
+    minima on f32 inputs, on their bf16 tables, and on those tables
+    zero-padded to the kernel's row width (16 → 64 columns), with f32 and
+    bf16 queries mixed."""
+    q, x, bsq, _ = _k2_inputs(metric, False)
+    q, x, bsq = (torch.from_numpy(a) for a in (q, x, bsq))
+    kw = dict(metric=metric, precision="default")
+    want = groupmin(q, x, bsq, **kw)
+    qb, xb = q.to(torch.bfloat16), x.to(torch.bfloat16)
+    qp, xp = pad_cols(qb), pad_cols(xb)
+    assert qp.shape == (16, 64) and xp.shape == (512, 64)
+    assert not qp[:, 16:].any() and torch.equal(xp[:, :16], xb)
+    for qq, xx in ((qb, xb), (qp, xp), (q, xb)):
+        np.testing.assert_array_equal(groupmin(qq, xx, bsq, **kw).numpy(), want.numpy())
+    assert (want[:, 3] < 1e29).all()
+
+
+def test_pad_cols_whole_128_byte_rows():
+    x8 = torch.ones(3, 37, dtype=torch.int8)
+    assert pad_cols(x8).shape == (3, 128) and int(pad_cols(x8).sum()) == 3 * 37
+    xb = torch.ones(3, 960, dtype=torch.bfloat16)
+    assert pad_cols(xb) is xb  # 15 steps of 64 already
+    assert pad_cols(torch.ones(2, 65, dtype=torch.bfloat16)).shape == (2, 128)
+    assert pad_cols(torch.ones(2, 128, dtype=torch.int8)).shape == (2, 128)
 
 
 @pytest.fixture(scope="module")
@@ -178,6 +220,20 @@ def test_self_knn_fused_matches_lira():
     assert all(len(set(r)) == len(r) for r in k_t)
 
 
+@pytest.mark.parametrize("precision", ["default", "int8"])
+def test_self_knn_fused_reduced_round1_matches_lira(precision):
+    """A self-kNN's round 1 at "default" takes its query tiles as slices of
+    the corpus's bf16 table; margin 16 covers all 16 groups."""
+    rng = np.random.default_rng(7)
+    base = rng.normal(size=(2048, 8)).astype(np.float32)
+    k_j = np.asarray(jkp.self_knn_fused(base, k=4, precision=precision, margin=16,
+                                        q_tile=512, interpret=True))
+    k_t = tkp.self_knn_fused(base, k=4, precision=precision, margin=16, q_tile=512,
+                             device=CPU)
+    _same_neighbours(k_t, k_j, base, base)
+    assert not (k_t == np.arange(len(base))[:, None]).any()
+
+
 def test_knn_fused_gist_dim_matches_lira():
     """d=960: lira_tpu's d-aware Pallas blocks; the port's kernel tile is
     the same at every d."""
@@ -223,6 +279,17 @@ def test_groupmin_rejects_what_the_kernel_does_not_take():
         groupmin(q, x, bsq, metric="L2", precision="int8")  # f32 takes highest/default
     with pytest.raises(ValueError):
         groupmin(q.to(torch.int8), x.to(torch.int8), bsq, metric="L2")  # no t_eff
+
+
+def test_groupmin_bf16_takes_default_only():
+    x = torch.zeros(256, 8, dtype=torch.bfloat16)
+    q = torch.zeros(4, 8, dtype=torch.bfloat16)
+    bsq = torch.zeros(2, 128)
+    with pytest.raises(ValueError):
+        groupmin(q, x, bsq, metric="L2")  # "highest" on bf16 values
+    with pytest.raises(TypeError):
+        groupmin(q.to(torch.int8), x, bsq, metric="L2", precision="default")
+    assert groupmin(q, x, bsq, metric="L2", precision="default").shape == (4, 2)
 
 
 def test_exact_knn_stream_matches_lira(data):
