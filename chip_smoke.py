@@ -92,12 +92,32 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
   8. `run_smallscale` on the card: 200k×128, 2000 queries with exact
      ground truth, 256 buckets, k=10, 3 epochs, model redundancy, the
      serving sweep;
+  the sharded path and the native runtime, on the same card:
+  - after phase 6's per-query engines, the native host runtime
+    (`lira_tpu_torch/native`, g++): loaded (the run fails without it), the
+    CSR build and `_probe_tiles` equal to the numpy branches on the 1M
+    index, their seconds and the pallas f32 `search` QPS native against
+    numpy;
+  - before phase 7, the sharded engine on the trained index at phase 6's
+    threshold and margins: 2 gloo ranks sharing the card in f32, bf16,
+    int8, capacity bf16/int8, and 1 nccl rank in f32 (nprobe/ndis equal to
+    phase 6's, f32 sets equal up to exact ties, the bf16/int8 oracle,
+    stream == search, K1 launched on every rank; QPS, per-rank peak
+    memory); in phase 7, `run_search --n_shards 2 --backend gloo` on its
+    artifacts (the f32 row equal to `--n_shards 1`'s);
+  - last, `python -m lira_tpu_torch distributed --n_shards 2 --backend
+    gloo` on the small-scale corpus written as a dataset (the sharded
+    self-kNN against knn_fused on 1024 rows, the sharded assignment against
+    kmeans_assign, the sweep CSV, K2 and K1 launched on each rank);
   9. a `{"kernels": [...]}` line (K1 ×3 dtypes, K2 ×3 modes, K3 — one launch and a
      whole batch — and K3's list inversion and merge kernels, at the main
      path's shapes: time, plain time, bound, library yardstick, launches
      in the main path's run (for K2 "default" and int8: their self-kNN),
      for K1 and K2 `cli_launches`, their launches
-     in phase 7 in the record's own dtype, and for K3 the xla scan's time,
+     in phase 7 in the record's own dtype; K1's `sharded_launches` per rank
+     (f32 also `sharded_nccl_launches` and the distributed pipeline's
+     `distributed_launches`) and K2 f32's `sharded_knn_launches` per rank
+     in the distributed pipeline, and for K3 the xla scan's time,
      the streamed floor and the list inversion's time on the same inputs).
 The last line is {"ok": true, "device": {...}}.
 """
@@ -1110,9 +1130,11 @@ def phase_per_query(dev, idx, run, batch=65536, k=10):
             if impl == "pallas":
                 if dt == "float32":
                     probe_s, tiles_s, shape = per_query_host_steps(eng, x_q, thr)
+                    from lira_tpu_torch import native
+
                     log(f"per-query host steps for {len(x_q)} queries: probe + selection "
-                        f"{probe_s:.3f}s, _probe_tiles {tiles_s:.3f}s (numpy) -> lists "
-                        f"{shape}")
+                        f"{probe_s:.3f}s, _probe_tiles {tiles_s:.3f}s "
+                        f"({'native' if native.available() else 'numpy'}) -> lists {shape}")
                 kernels += k3_main_path(eng, calls, launches, dt)
             del eng, r_s
             torch.cuda.empty_cache()
@@ -1439,6 +1461,8 @@ def phase_cli(dev, idx, run, k=10, n_epoch=6, n_ivf=100_000, nprobe_ivf=16, n_ls
                                   device=dev)
                 wall = time.perf_counter() - t0
                 (row,) = rows
+                if dt == "float32":
+                    rows_f32 = rows
                 r = res6[dt]["r"]
                 # run_search's recall_against, on phase 6's ids
                 hits = ((r.ids[:, :, None] == gt_pad[:, None, :k])
@@ -1459,6 +1483,22 @@ def phase_cli(dev, idx, run, k=10, n_epoch=6, n_ivf=100_000, nprobe_ivf=16, n_ls
                     raise AssertionError(f"run_search[{tag}]: recall more than "
                                          f"{CAPACITY_RECALL_DROP} below phase 6's")
             counts["serve_k1"] = dict(union_groupmin.launches_by_dtype)
+            # the same artifacts from 2 gloo ranks sharing the card: f32's
+            # row equal to --n_shards 1's (recall, nprobe and ndis)
+            t0 = time.perf_counter()
+            (row2,) = run_search(tmp, "smoke1m", "smoke", k=k, t_min=thr, t_max=thr,
+                                 t_step=1.0, bundle=batch, scan_dtype="float32", device=dev,
+                                 n_shards=2, backend="gloo")
+            (row1,) = rows_f32
+            log(f"run_search[float32, --n_shards 2 --backend gloo]: nprobe "
+                f"{row2['avg_nprobe']:.4f} ndis {row2['avg_cmp']:.1f} recall@{k} "
+                f"{row2['avg_recall'] * n_q / n_gt:.4f} (--n_shards 1: {row1['avg_nprobe']:.4f} "
+                f"{row1['avg_cmp']:.1f} {row1['avg_recall'] * n_q / n_gt:.4f}); "
+                f"{row2['qps']:.0f} QPS; {time.perf_counter() - t0:.1f}s with the spawn, the "
+                f"load and the builds")
+            if [row2[c] for c in ("avg_nprobe", "avg_cmp", "avg_recall")] != [
+                    row1[c] for c in ("avg_nprobe", "avg_cmp", "avg_recall")]:
+                raise AssertionError("run_search --n_shards 2: f32 row != --n_shards 1's")
 
             # 2. the corpus as a dataset, and `knn` (exact: K2 on the card)
             data = os.path.join(tmp, "data")
@@ -1773,6 +1813,230 @@ def phase_smallscale(dev, n=200_000, n_query=2000, d=128, n_bkt=256, k=10, n_epo
     torch.cuda.empty_cache()
 
 
+def phase_native(dev, idx, run, k=10):
+    """The native host runtime (lira_tpu_torch/native, g++ at first use) on
+    the trained 1M index: built and loaded; the CSR build and the
+    per-query tile lists equal to the numpy branches on the same inputs;
+    `_probe_tiles` seconds on one 65536-query batch and the pallas f32
+    `search` QPS, native against numpy (in turns, in this process)."""
+    from lira_tpu_torch import native
+    from lira_tpu_torch.engine.serve import QueryEngine
+    from lira_tpu_torch.partition.assign import build_bucket_layout
+
+    t0 = time.perf_counter()
+    native.build()  # raises with g++'s output if the library does not build
+    if not native.available():
+        raise AssertionError("the native library built but did not load on this machine")
+    log(f"native: {native.lib_path().name} loaded ({time.perf_counter() - t0:.2f}s with "
+        f"the g++ build)")
+    x_d, x_q, km, scaler, mlp = (idx[key] for key in ("x_d", "x_q", "km", "scaler", "mlp"))
+    n_bkt, thr = idx["layout"].n_bkt, run["thr"]
+    d2b = np.full((len(x_d), 2), -1, np.int32)
+    d2b[:, 0] = idx["assign"]
+    d2b[::7, 1] = (idx["assign"][::7] + 1) % n_bkt  # a replica column, as redundancy adds
+    times = {}
+    for use_native in (True, False, True, False):
+        t0 = time.perf_counter()
+        lay = build_bucket_layout(d2b, n_bkt, use_native=use_native)
+        times.setdefault(use_native, []).append(time.perf_counter() - t0)
+        if use_native:
+            lay_n = lay
+        else:
+            lay_p = lay
+    for f in ("offsets", "ids", "padded_offsets", "padded_ids"):
+        if not np.array_equal(getattr(lay_n, f), getattr(lay_p, f)):
+            raise AssertionError(f"native build_csr: layout {f} != the numpy branch's")
+    log(f"build_bucket_layout ({len(x_d)} rows, n_mul 2, {n_bkt} buckets): native "
+        f"{min(times[True]):.3f}s, numpy {min(times[False]):.3f}s; layouts equal")
+
+    eng = QueryEngine(x_d, idx["layout"], km.centroids, scaler, mlp, probe_cap=128,
+                      scan_impl="pallas", device=dev)
+    eng.search(x_q[:2048], thr, k)  # first touch
+    probed = eng._select_probed(x_q, thr)
+    real_available = native.available
+    rows, qps = {}, {}
+    for path in ("native", "numpy", "native", "numpy"):
+        # the numpy turns: the engine's own numpy branch, native switched off
+        native.available = real_available if path == "native" else (lambda: False)
+        try:
+            t0 = time.perf_counter()
+            tiles = eng._probe_tiles(probed)
+            rows.setdefault(path, []).append(time.perf_counter() - t0)
+            r = eng.search(x_q, thr, k)
+            qps.setdefault(path, []).append(len(x_q) / r.elapsed)
+        finally:
+            native.available = real_available
+        if path == "native":
+            tiles_n, r_n = tiles, r
+        else:
+            tiles_p, r_p = tiles, r
+    if not np.array_equal(tiles_n, tiles_p):
+        raise AssertionError("native probe_tiles != the numpy branch's lists")
+    if not np.array_equal(r_n.ids, r_p.ids):
+        raise AssertionError("pallas f32 search differs between the two tile-list paths")
+    log(f"_probe_tiles on {len(x_q)} queries -> lists {tiles_n.shape}: native "
+        f"{min(rows['native']):.3f}s, numpy {min(rows['numpy']):.3f}s (lists equal); "
+        f"pallas f32 search: native {max(qps['native']):.0f} QPS, numpy "
+        f"{max(qps['numpy']):.0f} QPS (best of 2 each; the engine takes native here)")
+    del eng
+    torch.cuda.empty_cache()
+
+
+def phase_sharded(dev, idx, run, batch=65536, k=10):
+    """The sharded engine (parallel/sharded_engine.py) on the trained 1M
+    index at phase 6's threshold, margins, probe_cap and block_q: 2 gloo
+    ranks sharing the card in f32, bf16, int8, capacity bf16 and capacity
+    int8 (one spawn), then 1 nccl rank in f32.  Each against phase 6's
+    single-chip result of its dtype: nprobe and ndis exactly equal; f32
+    neighbour sets equal (exact f32 ties allowed, counted), bf16/int8 the
+    64-query oracle, capacity recall within CAPACITY_RECALL_DROP;
+    search_stream (2 batches) == search; K1 launched on every rank (a
+    2048-query warm-up search first, then the timed batch).  Two
+    ranks on one card show correctness, not scaling.  Returns
+    {dtype: per-rank K1 launches} of the gloo store_f32 runs, and the nccl
+    run's under "float32-nccl"."""
+    from lira_tpu_torch.engine.serve import QueryEngine
+    from lira_tpu_torch.parallel import launch_many, serve_rank
+
+    x_d, x_q, km, layout, scaler = (idx[key] for key in
+                                    ("x_d", "x_q", "km", "layout", "scaler"))
+    mlp = copy.deepcopy(idx["mlp"]).cpu()
+    thr, gt, res6 = run["thr"], run["gt"], run["results"]
+    two = np.tile(x_q, (2, 1))
+    modes = [("float32", True), ("bfloat16", True), ("int8", True), ("bfloat16", False),
+             ("int8", False)]
+
+    def calls(ms):
+        # a first 2048-query search warms each rank (its kernel library
+        # load, first allocations) before the timed batch
+        reqs = [("search", (x_q[:2048], thr, k), {}), ("search", (x_q, thr, k), {}),
+                ("search_stream", (two, thr, k), dict(batch_size=batch))]
+        return [(serve_rank, (x_d, layout, km.centroids, scaler, mlp, reqs),
+                 dict(probe_cap=128, block_q=1024, scan_dtype=dt, store_f32=f32,
+                      margin=res6[dt]["margin"], local_impl="pallas")) for dt, f32 in ms]
+
+    t0 = time.perf_counter()
+    outs = launch_many(2, calls(modes), backend="gloo", device=dev.type)
+    wall_gloo = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    outs += launch_many(1, calls([("float32", True)]), backend="nccl", device=dev.type)
+    wall_nccl = time.perf_counter() - t0
+    log(f"sharded spawns: 2 gloo ranks x {len(modes)} engines {wall_gloo:.1f}s, "
+        f"1 nccl rank x 1 engine {wall_nccl:.1f}s (wall, with the spawn and each build)")
+
+    oracle_eng = QueryEngine(x_d, layout, km.centroids, scaler, idx["mlp"], probe_cap=128,
+                             scan_impl="xla", device=dev)
+    rng = np.random.default_rng(2)
+    launches = {}
+    for (dt, f32), out, backend in zip(modes + [("float32", True)], outs,
+                                       ["gloo"] * len(modes) + ["nccl"]):
+        tag = f"sharded {backend} x{len(out['ranks'])} {dt}{'' if f32 else ' capacity'}"
+        _, r, r_s = out["results"]
+        base = res6[dt]
+        r6 = base["r"]
+        ranks = out["ranks"]
+        k1 = [rk["k1_launches"] for rk in ranks]
+        peaks = [rk["peak_bytes"] / 2**30 if rk["peak_bytes"] is not None else float("nan")
+                 for rk in ranks]
+        if any(rk["local_impl"] != "pallas" for rk in ranks) or min(k1) <= 0:
+            raise AssertionError(f"[{tag}] a rank did not serve through K1: {ranks}")
+        if not (np.array_equal(r.nprobe, r6.nprobe) and np.array_equal(r.ndis, r6.ndis)):
+            raise AssertionError(f"[{tag}] nprobe/ndis differ from phase 6's")
+        if r.ids.shape != (batch, k) or not np.isfinite(r.scores[r.ids >= 0]).all():
+            raise AssertionError(f"[{tag}] wrong shape or non-finite scores")
+        check_stream(r, r_s, batch, tag)
+        recall = recall_at(r.ids, gt)
+        differ, a_near, b_near = set_diff(x_d, x_q, r.ids, r6.ids)
+        note = ""
+        if dt == "float32":
+            if a_near or b_near:
+                raise AssertionError(f"[{tag}] f32 neighbour sets differ from phase 6's "
+                                     f"beyond exact ties ({a_near} nearer, {b_near} farther)")
+            note = (f"neighbour sets equal to phase 6's ({differ} queries differ only "
+                    f"by exact f32 ties)")
+        elif f32:
+            check_oracle(oracle_eng, r, idx, thr, k, tag, rng)
+            note = f"{differ} queries with other sets than phase 6's ({a_near} nearer here)"
+        else:
+            if recall < base["recall"] - CAPACITY_RECALL_DROP:
+                raise AssertionError(f"[{tag}] recall {recall} more than "
+                                     f"{CAPACITY_RECALL_DROP} below phase 6's {base['recall']}")
+            note = f"{differ} queries with other sets than phase 6's store_f32"
+        log(f"serve[{tag}]: nprobe={r.nprobe.mean():.2f} ndis={r.ndis.mean():.0f} (equal to "
+            f"phase 6) recall@{k}={recall:.4f} (phase 6 {base['recall']:.4f}); {note}; search "
+            f"{batch / r.elapsed:.0f} QPS ({r.elapsed:.3f}s), stream {len(two) / r_s.elapsed:.0f}"
+            f" QPS; K1 launches per rank {k1}; peak device memory per rank "
+            f"{', '.join(f'{p:.2f}' for p in peaks)} GiB; engine build {out['build_s']:.1f}s")
+        if f32:
+            launches[dt if backend == "gloo" else "float32-nccl"] = k1
+    del oracle_eng
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_distributed(dev, n=200_000, n_query=2000, d=128, n_bkt=256, k=10, n_epoch=3):
+    """`python -m lira_tpu_torch distributed --n_shards 2 --backend gloo`
+    (through the module's main, in this process) on the small-scale
+    phase's corpus written as a dataset: the sharded self-kNN equal to the
+    single-device knn_fused ("highest") on 1024 sampled rows up to exact
+    ties, the sharded K-Means assignment equal to kmeans_assign of its own
+    centroids, the sweep CSV written, K2 and K1 launched on each rank.
+    Returns the ranks' launch counts."""
+    from lira_tpu_torch.__main__ import main as cli
+    from lira_tpu_torch.config import Config
+    from lira_tpu_torch.io.datasets import HARD_REGIME, synthetic_dataset, write_dataset
+    from lira_tpu_torch.ops.knn import drop_self
+    from lira_tpu_torch.ops.knn_pallas import knn_fused
+    from lira_tpu_torch.partition.kmeans import kmeans_assign
+
+    bundle = synthetic_dataset(**HARD_REGIME, n_base=n, n_query=n_query, dim=d, k_gt=k,
+                               name="smoke")
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        write_dataset(bundle, os.path.join(tmp, "data"))
+        os.chdir(tmp)  # the pipeline writes ./logs/<dataset>/...
+        try:
+            t0 = time.perf_counter()
+            res = cli(["distributed", "--n_shards", "2", "--backend", "gloo", "--device",
+                       dev.type, "--dataset", "smoke", "--data_path", os.path.join(tmp, "data"),
+                       "--k", str(k), "--n_bkt", str(n_bkt), "--n_epoch", str(n_epoch),
+                       "--n_mul", "2", "--duplicate_type", "model"])
+            wall = time.perf_counter() - t0
+            cfg = Config(dataset="smoke", k=k, n_bkt=n_bkt, n_epoch=n_epoch, n_mul=2,
+                         duplicate_type="model").update()
+            csv = os.path.join(cfg.pth_log, cfg.file_name + "_tuning_threshold",
+                               "model_sharded.csv")
+            with open(csv) as f:
+                csv_rows = f.read().splitlines()
+        finally:
+            os.chdir(cwd)
+    ranks = res["ranks"]
+    log(f"distributed x2 gloo on the card ({n}x{d}, {n_bkt} buckets, {n_epoch} epochs): "
+        f"{wall:.1f}s; per rank K2 {[r['k2_launches'] for r in ranks]}, K1 "
+        f"{[r['k1_launches'] for r in ranks]}; {len(csv_rows) - 1} sweep CSV rows")
+    if min(r["k2_launches"] for r in ranks) <= 0 or min(r["k1_launches"] for r in ranks) <= 0:
+        raise AssertionError(f"distributed: a rank launched no K2 or no K1: {ranks}")
+    if len(csv_rows) < 2 or len(res["epoch_rows"]) != n_epoch + 1:
+        raise AssertionError("distributed: sweep CSV or epoch rows missing")
+    x_d = bundle.base
+    rows = np.random.default_rng(3).choice(n, size=1024, replace=False)
+    _, ids = knn_fused(x_d, x_d[rows], k + 1, precision="highest", device=dev)
+    ref = drop_self(ids, k, row_ids=rows)
+    differ, a_near, b_near = set_diff(x_d, x_d[rows], res["knn_data"][rows], ref)
+    log(f"sharded self-kNN vs knn_fused (highest) on 1024 rows: {differ} differ, "
+        f"{a_near + b_near} beyond ties")
+    if a_near or b_near:
+        raise AssertionError("distributed: sharded self-kNN differs from knn_fused")
+    a = kmeans_assign(x_d, res["kmeans"].centroids, device=dev)
+    if not np.array_equal(a, res["assign"]):
+        raise AssertionError("distributed: sharded assignment != kmeans_assign")
+    serve = res["serve_rows"]
+    log(f"distributed sweep: recall {serve[0]['avg_recall']:.4f} at nprobe "
+        f"{serve[0]['avg_nprobe']:.2f} .. {serve[-1]['avg_recall']:.4f} at "
+        f"{serve[-1]['avg_nprobe']:.2f}; sharded assignment equal to kmeans_assign")
+    return ranks
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1807,9 +2071,11 @@ def main() -> int:
         idx = phase_trained_index(dev)
         kernels, run = phase_serving(dev, idx)
         kernels += phase_per_query(dev, idx, run)
+        phase_native(dev, idx, run)
         phase_capacity(dev, idx, run)
         phase_ivf(dev, idx, run)
         phase_sel_rows_memory(dev, idx, run)
+        sharded = phase_sharded(dev, idx, run)
         cli_counts = phase_cli(dev, idx, run)
         del run
         kernels += idx.pop("k2")
@@ -1823,6 +2089,16 @@ def main() -> int:
                 dt = rec["name"].split("[")[1].split(",")[0]
                 rec["cli_launches"] = cli_counts["k2_by_dtype"].get(dt, 0)
         phase_smallscale(dev)
+        dist_ranks = phase_distributed(dev)
+        for rec in kernels:  # the sharded path's launches, per rank
+            if rec["name"].startswith("union_groupmin"):
+                dt = rec["name"].split("[")[1].split(",")[0]
+                rec["sharded_launches"] = sharded[dt]
+                if dt == "float32":
+                    rec["sharded_nccl_launches"] = sharded["float32-nccl"]
+                    rec["distributed_launches"] = [r["k1_launches"] for r in dist_ranks]
+            elif rec["name"] == "groupmin[float32,L2]":
+                rec["sharded_knn_launches"] = [r["k2_launches"] for r in dist_ranks]
     log(smi)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

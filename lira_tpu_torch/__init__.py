@@ -5,14 +5,19 @@ obvious counterpart there.  The package imports torch and numpy only:
 never jax, and never a module of `lira_tpu` (the JAX package is the
 reference the port is tested against, not a dependency).
 
-Layer map of the ported slices (the whole serving engine; training; the
-single-chip pipelines and CLIs — `python -m lira_tpu_torch <command>`):
+Layer map (every module of lira_tpu is ported; `python -m lira_tpu_torch
+<command>` runs the pipelines and CLIs):
 
     pipelines/  run_smallscale (build → train → redundancy → sweeps),
                 run_largescale (subset training, full-corpus redundancy,
                 resumable), build_index / run_search (artifacts written
-                once, served many times), compute_knn_cli, extract_k1,
-                batch, parity
+                once, served many times; --n_shards serves from several
+                ranks), run_distributed (every heavy stage over the
+                ranks), compute_knn_cli, extract_k1, batch, parity
+    parallel/   the sharded path on torch.distributed: ranks spawned by
+                `launch` (a Mesh each), data-parallel training, sharded
+                kNN (K2) and K-Means, the sharded engine (K1 on every rank,
+                one all-gather merge)
     io/         fvecs/ivecs/bvecs, synthetic corpora (byte-identical to
                 lira_tpu's), the self-kNN cache, the index artifacts and
                 TorchScript export (either package reads the other's), the
@@ -32,6 +37,9 @@ single-chip pipelines and CLIs — `python -m lira_tpu_torch <command>`):
                 tuning, the per-bucket evaluation scan and sweep
     csrc/       hand-written CUDA kernels (K1, K2, K3), built with nvcc at
                 first use
+    native/     the host runtime (CSR build, tile lists, xvecs parsers),
+                built with g++ at first use; profiling.py: stage timers and
+                torch.profiler traces
 
 Entry points run on `cuda` unless the caller passes `device="cpu"`.
 """

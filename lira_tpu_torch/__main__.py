@@ -12,9 +12,11 @@ Commands (each forwards to the matching pipeline module):
     batch        run an experiment grid over datasets × n_bkt
     parity       run pipeline + sweeps on a real dataset, diff vs a
                  reference-produced threshold-sweep CSV
+    distributed  the sharded pipeline over --n_shards ranks (torch.distributed;
+                 --backend nccl: one card a rank, gloo: ranks sharing a card
+                 or on the CPU)
 
-Not ported yet:
-    distributed  the multi-chip pipeline (ROADMAP.md queue A item 6)
+`search --n_shards N` serves an index from N ranks (the same backends).
 """
 
 import importlib
@@ -29,10 +31,7 @@ COMMANDS = {
     "extract-k1": ("lira_tpu_torch.pipelines.extract_k1", "main"),
     "batch": ("lira_tpu_torch.pipelines.batch", "main"),
     "parity": ("lira_tpu_torch.pipelines.parity", "main"),
-}
-NOT_PORTED = {
-    "distributed": "the multi-chip pipeline is not ported to lira_tpu_torch yet: "
-                   "ROADMAP.md queue A item 6",
+    "distributed": ("lira_tpu_torch.pipelines.distributed", "main"),
 }
 
 
@@ -41,8 +40,6 @@ def main(argv=None):
     if argv and argv[0] in ("-h", "--help"):
         print(__doc__)
         return
-    if argv and argv[0] in NOT_PORTED:
-        raise SystemExit(f"lira_tpu_torch {argv[0]}: {NOT_PORTED[argv[0]]}")
     if not argv or argv[0] not in COMMANDS:
         print(__doc__)
         raise SystemExit(1)

@@ -32,9 +32,17 @@ screen output is dropped before the next chunk's screen runs), results
 copied straight to the host instead of `_wire_pack`'s one-transfer
 packing, and pinned buffers with asynchronous copies instead of the
 stream's upload thread.
+
+Phase profiling, as in lira_tpu: `_scan_all(screen_only=True)` stops after
+the group selection, and LIRA_BLOCKED_TIMING=1 prints the wall time of each
+phase of `blocked_search` and `blocked_search_stream`, the device
+synchronised at each mark (CUDA runs asynchronously).
 """
 
 from __future__ import annotations
+
+import os
+import time
 
 import numpy as np
 import torch
@@ -201,10 +209,15 @@ def _screen_rescore(
     sel_rows: int = 128,
     dim_scale: torch.Tensor | None = None,  # (d,) f32 per-dim int8 corpus scale
     screen_sq: torch.Tensor | None = None,  # (n_rows,) f32 K1 row norms (L2)
+    screen_only: bool = False,  # phase profiling: stop after the group selection
 ):
     """K1 screen + masked group selection + exact f32 rescore over every
     query block.  Returns (neg (B_pad, k_loc), ids (B_pad, k_loc), k_loc) in
-    block (permuted) order.  int8: see `screen_queries`.  Capacity mode
+    block (permuted) order — shared by `_scan_all` and each rank of the
+    sharded engine (which merges the ranks before the dedup).
+    `screen_only`: no rescore; the selected groups' negated masked minima
+    and global group ids (−inf / −1 past the selection) take the place of
+    neg and ids.  int8: see `screen_queries`.  Capacity mode
     (the rescore table is the bf16/int8 screen table): round 2 widens the
     gathered rows to f32, and for int8 folds the per-dim scale into the
     query, x·q = Σ_d s_d·x8_d·q_d = x8·(q·s), so the gather moves the
@@ -277,6 +290,13 @@ def _screen_rescore(
 
     def rescore(q_b, vals, ggrp):
         """Exact f32 rescore of the selected groups, `sub` queries a step."""
+        if screen_only:
+            v, g = vals[:, :k_loc], ggrp[:, :k_loc]
+            if k_loc > v.shape[1]:
+                pad = k_loc - v.shape[1]
+                v = F.pad(v, (0, pad), value=-torch.inf)
+                g = F.pad(g, (0, pad), value=-1)
+            return v, g
         valid = vals > -(_BIG / 2)
         negs, oids = [], []
         for s in range(0, q_b.shape[0], sub):
@@ -343,9 +363,11 @@ def _screen_rescore(
 @torch.no_grad()
 def _scan_all(q_pad, probed, perm, supers, tb, ulen, corpus_flat, bsq, corpus_flat_f32,
               tiles_ids, tile_pad_count, *, metric: str, kg: int, fetch_k: int, k: int,
-              qb: int, sub: int, sel_rows: int = 128, dim_scale=None, screen_sq=None):
+              qb: int, sub: int, sel_rows: int = 128, dim_scale=None, screen_sq=None,
+              screen_only: bool = False):
     """(scores (B_pad, k), ids (B_pad, k)) in caller order, deduplicated to
-    k distinct neighbours."""
+    k distinct neighbours (`screen_only`: group minima and group ids, see
+    `_screen_rescore`)."""
     n_blocks = supers.shape[0]
     q_perm = q_pad[perm]
     probed_p = probed[perm].view(n_blocks, qb, -1)
@@ -353,6 +375,7 @@ def _scan_all(q_pad, probed, perm, supers, tb, ulen, corpus_flat, bsq, corpus_fl
         q_perm, probed_p, supers, tb, ulen, corpus_flat, bsq, corpus_flat_f32,
         tiles_ids, tile_pad_count, metric=metric, kg=kg, fetch_k=fetch_k, qb=qb,
         sub=sub, sel_rows=sel_rows, dim_scale=dim_scale, screen_sq=screen_sq,
+        screen_only=screen_only,
     )
     ids, neg = _dedup_topk_dev(ids, neg, k)
     out_scores = torch.empty_like(neg)
@@ -400,6 +423,9 @@ class BlockScanState:
         chunk_rows: int = 1 << 21,
         store_f32: bool = True,
         device=None,
+        int8_scale: np.ndarray | None = None,  # (d,) f32 per-dim int8 scale;
+        # None: the corpus's own max-abs / 127 (the sharded engine passes
+        # the whole corpus's, so every rank's scores are commensurable)
     ) -> "BlockScanState":
         """Build the padded table ON THE DEVICE from the raw corpus: the raw
         corpus goes up once in dense chunks, and each chunk's rows are
@@ -421,8 +447,8 @@ class BlockScanState:
         rows_total = n_super * S_TILES * tile
         capacity = not store_f32 and scan_dtype in (torch.bfloat16, torch.int8)
         cap_int8 = capacity and scan_dtype == torch.int8
-        dim_scale = None
-        if cap_int8:
+        dim_scale = None if int8_scale is None else np.asarray(int8_scale, np.float32)
+        if cap_int8 and dim_scale is None:
             amax = np.zeros(d, np.float32)
             for s in range(0, n, chunk_rows):
                 np.maximum(amax, np.abs(x_d[s : s + chunk_rows]).max(axis=0), out=amax)
@@ -460,14 +486,16 @@ class BlockScanState:
             norms_rows = np.zeros(rows_total, np.float32)
             norms_rows[sorted_pos] = row_sqnorms(x_d)[sorted_src]
         self._finish(out, ids, tile_bucket, metric, scan_dtype, tile, n_super,
-                     store_f32=store_f32, norms_rows=norms_rows, dim_scale=dim_scale)
+                     store_f32=store_f32, norms_rows=norms_rows,
+                     dim_scale=dim_scale if scan_dtype == torch.int8 else None)
         return self
 
     def _finish(self, corpus_dev, ids, tile_bucket, metric, scan_dtype, tile, n_super,
                 store_f32=True, norms_rows=None, dim_scale=None):
         """corpus_dev: the padded table on the device — f32, or already
-        bf16/int8 from the capacity build (with its host `norms_rows` and,
-        for int8, its `dim_scale`)."""
+        bf16/int8 from the capacity build (with its host `norms_rows`).
+        `dim_scale`: the int8 table's per-dim scale (capacity's, or a given
+        one); None takes it from corpus_dev."""
         dev = corpus_dev.device
         self.store_f32 = store_f32 or scan_dtype not in (torch.bfloat16, torch.int8)
         # Pad rows become COPIES of their bucket's last real row: K1 takes
@@ -499,7 +527,10 @@ class BlockScanState:
         elif scan_dtype == torch.int8:
             # symmetric per-dim quantization x ≈ s_d·x8, on the device,
             # zero-padded to K1's int8_width
-            self.dim_scale = torch.clamp_min(corpus_dev.abs().amax(dim=0), 1e-30) / 127.0
+            if dim_scale is None:
+                self.dim_scale = torch.clamp_min(corpus_dev.abs().amax(dim=0), 1e-30) / 127.0
+            else:
+                self.dim_scale = torch.as_tensor(dim_scale, dtype=torch.float32, device=dev)
             x8 = torch.clamp(torch.round(corpus_dev / self.dim_scale), -127, 127).to(torch.int8)
             pad = int8_width(x8.shape[1]) - x8.shape[1]
             self.corpus_flat = F.pad(x8, (0, pad)) if pad else x8
@@ -628,6 +659,31 @@ def _wait(handle) -> list[np.ndarray]:
     return [t.numpy() for t in host]
 
 
+class _Laps:
+    """Phase wall times of one blocked call when LIRA_BLOCKED_TIMING=1
+    (else every method is a no-op).  Each mark synchronises the device
+    first: CUDA runs asynchronously, so an unsynchronised clock would time
+    the enqueue, not the phase."""
+
+    def __init__(self, dev: torch.device):
+        self.on = os.environ.get("LIRA_BLOCKED_TIMING") == "1"
+        self.dev = dev
+        self.parts: list[tuple[str, float]] = []
+        self.t = time.perf_counter()
+
+    def mark(self, name: str) -> None:
+        if not self.on:
+            return
+        if self.dev.type == "cuda":
+            torch.cuda.synchronize(self.dev)
+        now = time.perf_counter()
+        self.parts.append((name, now - self.t))
+        self.t = now
+
+    def line(self) -> str:
+        return ", ".join(f"{name} {1e3 * s:.0f}ms" for name, s in self.parts)
+
+
 def _probe_batch(state: BlockScanState, engine, queries: np.ndarray, threshold: float,
                  block_q: int, use_cache: bool = False) -> dict:
     """Upload one batch and launch its probe (asynchronous on the card).
@@ -683,11 +739,13 @@ def _probe_batch(state: BlockScanState, engine, queries: np.ndarray, threshold: 
                 ndis=ndis, B=B, qb=qb)
 
 
-def _dispatch_scan(state, engine, h, union, fetch_k, k, kg, sel_rows):
+def _dispatch_scan(state, engine, h, union, fetch_k, k, kg, sel_rows, laps=None):
     """Host union build + launch of one batch's scan (asynchronous)."""
     supers, tb, ulen = build_block_unions(
         union, engine.tile_start, engine.tiles_per_bucket, state.tile_bucket
     )
+    if laps is not None:
+        laps.mark(f"host_unions U={supers.shape}")
     dev = state.device
     sub = _round2_sub(kg, sel_rows, h["q"].shape[1], h["qb"])
     return _scan_all(
@@ -725,12 +783,18 @@ def blocked_search(
     """(scores (B,k), ids (B,k), nprobe, ndis) as host arrays, deduplicated
     to k distinct neighbours."""
     margin = _resolve_margin(margin, state.scan_dtype, sel_rows)
+    laps = _Laps(state.device)
     h = _probe_batch(state, engine, queries, threshold, block_q, use_cache=True)
+    laps.mark("q_upload+probe")
     B = h["B"]
     union, nprobe, ndis = _wait(_to_host_async([h["union"], h["nprobe"], h["ndis"]]))
+    laps.mark("union_sync")
     scores, ids = _dispatch_scan(state, engine, h, union, fetch_k, k,
-                                 fetch_k + margin, sel_rows)
+                                 fetch_k + margin, sel_rows, laps)
     s_np, i_np = _wait(_to_host_async([_wire(scores, wire), ids]))
+    laps.mark("scan+result_sync")
+    if laps.on:
+        print(f"[blocked_search B={B}] {laps.line()}", flush=True)
     return s_np[:B], i_np[:B], nprobe[:B].astype(np.int64), ndis[:B].astype(np.int64)
 
 
@@ -776,18 +840,33 @@ def blocked_search_stream(
         out_np.append(nprobe[:B].astype(np.int64))
         out_nd.append(ndis[:B].astype(np.int64))
 
+    laps = _Laps(state.device)
+
+    def mark(label):
+        if laps.on:
+            laps.mark(label)
+            print(f"[stream {label}] {1e3 * laps.parts[-1][1]:.0f}ms", flush=True)
+
     prev = None
     h_next = probe(starts[0])
+    mark("probe b0")
     for i in range(len(starts)):
         h = h_next
-        h_next = probe(starts[i + 1]) if i + 1 < len(starts) else None
+        if i + 1 < len(starts):
+            h_next = probe(starts[i + 1])
+            mark(f"probe b{i + 1}")
+        else:
+            h_next = None
         union = _wait(h["counts"])[0]
         scores, ids = _dispatch_scan(state, engine, h, union, fetch_k, k, kg, sel_rows)
         res = _to_host_async([_wire(scores, wire), ids])
+        mark(f"union_sync+scan b{i}")
         if prev is not None:
             collect(*prev)
+            mark(f"collect b{i - 1}")
         prev = (h, res)
     collect(*prev)
+    mark(f"collect b{len(starts) - 1}")
     return (
         np.concatenate(out_scores),
         np.concatenate(out_ids),

@@ -343,9 +343,12 @@ class QueryEngine:
     def _probe_tiles(self, probed: np.ndarray) -> np.ndarray:
         """(B, T) tile-index lists of each query's probed buckets, valid
         tiles first in bucket order, -1 after; T is the pow2 ceiling of the
-        longest list.  lira_tpu's numpy branch (its output equals lira_tpu's
-        native OpenMP expander's); the port's own native/ is ROADMAP.md
-        queue A item 3."""
+        longest list.  The native OpenMP expander (lira_tpu_torch/native)
+        when it is available, else lira_tpu's numpy branch (the same lists)."""
+        from .. import native
+
+        if native.available():
+            return native.probe_tiles(probed, self.tile_start, self.tiles_per_bucket)
         B = probed.shape[0]
         rows, bs = np.nonzero(probed)
         reps = self.tiles_per_bucket[bs]

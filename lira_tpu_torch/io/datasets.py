@@ -43,12 +43,21 @@ class DatasetBundle:
 
 
 def _read_vectors(dataset_dir: str, name: str, kinds: tuple[str, ...]) -> np.ndarray | None:
-    """Load the first existing {name}_{kind}.{fvecs,bvecs} as float32."""
+    """Load the first existing {name}_{kind}.{fvecs,bvecs} as float32 (bvecs
+    widen through the native parser when it is built — BIGANN-style
+    datasets ship uint8)."""
+    from .. import native
+
     for kind in kinds:
         for ext in ("fvecs", "bvecs"):
             path = os.path.join(dataset_dir, f"{name}_{kind}.{ext}")
-            if os.path.exists(path):
-                return np.ascontiguousarray(read_xvecs(path), dtype=np.float32)
+            if not os.path.exists(path):
+                continue
+            if ext == "bvecs" and native.available():
+                raw = np.fromfile(path, dtype=np.uint8)
+                dim = int(raw[:4].view(np.int32)[0])
+                return native.bvecs_rows(raw, raw.size // (dim + 4), dim)
+            return np.ascontiguousarray(read_xvecs(path), dtype=np.float32)
     return None
 
 

@@ -1,5 +1,5 @@
 """Ragged bucket layout: CSR inverted lists + padded 128-row tiles (port of
-lira_tpu/partition/assign.py, numpy builder only).
+lira_tpu/partition/assign.py).
 
   * CSR (`offsets`, `ids`): sorted + deduplicated per bucket.
   * Padded tile layout (`padded_offsets`, `padded_ids`): every bucket padded
@@ -47,34 +47,45 @@ class BucketLayout:
         return out
 
 
-def build_bucket_layout(data_2_bkt: np.ndarray, n_bkt: int, tile: int = 128) -> BucketLayout:
+def build_bucket_layout(data_2_bkt: np.ndarray, n_bkt: int, tile: int = 128,
+                        use_native: bool = True) -> BucketLayout:
     """Build CSR + padded inverted lists from a (n, n_mul) assignment matrix.
 
     Slots holding -1 are empty.  Per bucket, member ids are sorted ascending
     and deduplicated (a point replicated into its own native bucket counts
-    once)."""
+    once).  Uses the native O(n) counting-sort builder (lira_tpu_torch/
+    native) when it is available, else a numpy argsort formulation; both
+    give the same layout."""
     data_2_bkt = np.asarray(data_2_bkt)
     if data_2_bkt.ndim == 1:
         data_2_bkt = data_2_bkt[:, None]
     n, n_mul = data_2_bkt.shape
 
-    flat_bkt = data_2_bkt.reshape(-1).astype(np.int64)
-    flat_id = np.repeat(np.arange(n, dtype=np.int64), n_mul)
-    valid = flat_bkt >= 0
-    flat_bkt, flat_id = flat_bkt[valid], flat_id[valid]
+    from .. import native
 
-    # sort by (bucket, id) then drop duplicate (bucket, id) pairs
-    key = flat_bkt * (n + 1) + flat_id
-    order = np.argsort(key, kind="stable")
-    flat_bkt, flat_id = flat_bkt[order], flat_id[order]
-    keep = np.ones(len(flat_bkt), dtype=bool)
-    if len(flat_bkt) > 1:
-        keep[1:] = np.diff(key[order]) != 0
-    flat_bkt, flat_id = flat_bkt[keep], flat_id[keep]
+    if use_native and native.available():
+        offsets, flat_id = native.build_csr(data_2_bkt, n_bkt)
+        flat_id = flat_id.astype(np.int64)
+        flat_bkt = np.repeat(np.arange(n_bkt, dtype=np.int64), np.diff(offsets))
+    else:
+        flat_bkt = data_2_bkt.reshape(-1).astype(np.int64)
+        flat_id = np.repeat(np.arange(n, dtype=np.int64), n_mul)
+        valid = flat_bkt >= 0
+        flat_bkt, flat_id = flat_bkt[valid], flat_id[valid]
 
-    counts = np.bincount(flat_bkt, minlength=n_bkt).astype(np.int64)
-    offsets = np.zeros(n_bkt + 1, dtype=np.int64)
-    np.cumsum(counts, out=offsets[1:])
+        # sort by (bucket, id) then drop duplicate (bucket, id) pairs
+        key = flat_bkt * (n + 1) + flat_id
+        order = np.argsort(key, kind="stable")
+        flat_bkt, flat_id = flat_bkt[order], flat_id[order]
+        keep = np.ones(len(flat_bkt), dtype=bool)
+        if len(flat_bkt) > 1:
+            keep[1:] = np.diff(key[order]) != 0
+        flat_bkt, flat_id = flat_bkt[keep], flat_id[keep]
+
+        counts = np.bincount(flat_bkt, minlength=n_bkt).astype(np.int64)
+        offsets = np.zeros(n_bkt + 1, dtype=np.int64)
+        np.cumsum(counts, out=offsets[1:])
+    counts = np.diff(offsets)
 
     padded_counts = ((counts + tile - 1) // tile) * tile
     padded_offsets = np.zeros(n_bkt + 1, dtype=np.int64)

@@ -3,12 +3,14 @@
 
 Loads the artifact contract written by build_index.py of either package,
 rebuilds the engine, and prints per-threshold avg_recall / avg_nprobe /
-avg_cmp / per-query time / QPS.  The mesh-sharded engine (`--n_shards` >
-1) is not ported yet (ROADMAP queue A item 6).
+avg_cmp / per-query time / QPS.  `--n_shards N` > 1 serves the index from
+N ranks with the sharded engine (parallel/sharded_engine.py): `--backend
+nccl` takes one card a rank, `gloo` lets ranks share a card or run on the
+CPU.
 
     python -m lira_tpu_torch search --device cpu --dataset toyv \\
         --data_path /path/to/data --artifacts_dir ./logs/toyv/ML_kmeans_RE_FLAT \\
-        --prefix <file_name> --k 5
+        --prefix <file_name> --k 5 [--n_shards 2 --backend gloo]
 """
 
 from __future__ import annotations
@@ -21,10 +23,6 @@ from ..engine.serve import QueryEngine, default_block_sel_rows
 from ..io.artifacts import load_index_artifacts
 from ..io.datasets import load_data
 from ..partition.assign import build_bucket_layout
-
-SHARDS_NOT_PORTED = ("--n_shards > 1 (the mesh-sharded engine) is not ported to "
-                     "lira_tpu_torch yet: ROADMAP.md queue A item 6")
-
 
 def manifest_margin(manifest: dict, scan_dtype: str,
                     sel_rows: int | None = None) -> int | None:
@@ -69,18 +67,17 @@ def run_search(
     block_q: int | str | None = None,  # None: engine default; int: fixed;
     # 'auto': measured in-run pick at the sweep's median threshold
     device=None,
+    backend: str = "nccl",  # n_shards > 1: 'nccl' (a card a rank) | 'gloo'
 ) -> list[dict]:
+    """The serving sweep's rows (rank 0's when n_shards > 1)."""
+    args = (artifacts_dir, prefix, dataset, data_path, k, t_min, t_max, t_step, bundle,
+            stream_batch, scan_dtype, capacity, block_margin, block_q)
     if n_shards > 1:
-        raise NotImplementedError(SHARDS_NOT_PORTED)
-    art = load_index_artifacts(artifacts_dir, prefix)
-    manifest = art["manifest"]
-    if bundle is None:
-        bundle = load_data(dataset, data_path=data_path)
-    if bundle.groundtruth is None:
-        raise ValueError("groundtruth required for the search sweep")
-    k = min(k, bundle.groundtruth.shape[1])
+        from ..parallel.mesh import launch
 
-    layout = build_bucket_layout(art["data_2_bkt"], manifest["n_bkt"])
+        return launch(n_shards, _sharded_search, *args, backend=backend, device=device)
+    art, manifest, bundle, k, layout = _load(artifacts_dir, prefix, dataset, data_path,
+                                             k, bundle)
     # int8 and capacity mode are blocked-only: pin the path
     kw = dict(scan_impl="blocked") if scan_dtype == "int8" or capacity else {}
     engine = QueryEngine(
@@ -93,7 +90,6 @@ def run_search(
         engine.block_margin = manifest_margin(manifest, scan_dtype, engine.block_sel_rows)
 
     thresholds = np.arange(t_min, t_max + 1e-6, t_step)
-    rows = []
     n_q = len(bundle.query)
     engine.search(bundle.query[: min(64, n_q)], float(thresholds[0]), k)  # warmup
     if block_q is not None:
@@ -112,6 +108,24 @@ def run_search(
                 print("[search] --block_q auto needs the blocked engine; keeping the default")
         else:
             engine.block_q = int(block_q)
+    return _sweep(engine, bundle, thresholds, k, stream_batch, echo=True)
+
+
+def _load(artifacts_dir, prefix, dataset, data_path, k, bundle):
+    art = load_index_artifacts(artifacts_dir, prefix)
+    manifest = art["manifest"]
+    if bundle is None:
+        bundle = load_data(dataset, data_path=data_path)
+    if bundle.groundtruth is None:
+        raise ValueError("groundtruth required for the search sweep")
+    k = min(k, bundle.groundtruth.shape[1])
+    layout = build_bucket_layout(art["data_2_bkt"], manifest["n_bkt"])
+    return art, manifest, bundle, k, layout
+
+
+def _sweep(engine, bundle, thresholds, k: int, stream_batch: int, echo: bool) -> list[dict]:
+    rows = []
+    n_q = len(bundle.query)
     for thr in thresholds:
         if stream_batch > 0:
             # sustained-throughput mode: batch i+1's probe and unions hide
@@ -129,12 +143,43 @@ def run_search(
             "qps": n_q / res.elapsed,
         }
         rows.append(row)
-        print(
-            f"threshold {row['threshold']:.3f}  recall {row['avg_recall']:.4f}  "
-            f"nprobe {row['avg_nprobe']:.2f}  cmp {row['avg_cmp']:.0f}  "
-            f"time/q {row['avg_time'] * 1e6:.1f}us  QPS {row['qps']:.0f}"
-        )
+        if echo:
+            print(
+                f"threshold {row['threshold']:.3f}  recall {row['avg_recall']:.4f}  "
+                f"nprobe {row['avg_nprobe']:.2f}  cmp {row['avg_cmp']:.0f}  "
+                f"time/q {row['avg_time'] * 1e6:.1f}us  QPS {row['qps']:.0f}"
+            )
     return rows
+
+
+def _sharded_search(artifacts_dir, prefix, dataset, data_path, k, t_min, t_max, t_step,
+                    bundle, stream_batch, scan_dtype, capacity, block_margin, block_q, *,
+                    mesh):
+    """One rank of `run_search(n_shards > 1)`: the sharded engine over the
+    artifacts, lira_tpu's sweep; rank 0 prints the rows."""
+    from ..parallel.sharded_engine import ShardedQueryEngine
+
+    art, manifest, bundle, k, layout = _load(artifacts_dir, prefix, dataset, data_path,
+                                             k, bundle)
+    if block_margin is None:
+        block_margin = manifest_margin(manifest, scan_dtype)
+    # int8 is K1-only: pin the local scan so the request also runs on CPU ranks
+    kw = dict(local_impl="pallas") if scan_dtype == "int8" else {}
+    engine = ShardedQueryEngine(
+        art["x_d"], layout, art["centroids"], art["scaler"], art["params"], mesh,
+        metric=manifest["metric"], n_mul=manifest["n_mul"], scan_dtype=scan_dtype,
+        store_f32=not capacity, margin=block_margin, **kw,
+    )
+    thresholds = np.arange(t_min, t_max + 1e-6, t_step)
+    engine.search(bundle.query[: min(64, len(bundle.query))], float(thresholds[0]), k)
+    if block_q is not None:
+        if str(block_q) == "auto":
+            if mesh.rank == 0:
+                print("[search] --block_q auto needs the single-device blocked engine; "
+                      "keeping the default")
+        else:
+            engine.block_q = int(block_q)
+    return _sweep(engine, bundle, thresholds, k, stream_batch, echo=mesh.rank == 0)
 
 
 def main(argv=None):
@@ -148,7 +193,10 @@ def main(argv=None):
     p.add_argument("--t_max", type=float, default=0.80)
     p.add_argument("--t_step", type=float, default=0.02)
     p.add_argument("--n_shards", type=int, default=1,
-                   help="> 1 is not ported yet (ROADMAP.md queue A item 6)")
+                   help="> 1: serve from this many ranks (the sharded engine)")
+    p.add_argument("--backend", default="nccl", choices=["nccl", "gloo"],
+                   help="--n_shards > 1: nccl (one card a rank) or gloo (ranks "
+                        "sharing a card, or CPU ranks)")
     p.add_argument("--stream_batch", type=int, default=0,
                    help="pipelined search_stream batch size (0 = one batch)")
     p.add_argument("--scan_dtype", default="float32",
@@ -169,13 +217,12 @@ def main(argv=None):
                         "to measure the fastest at the sweep's median threshold")
     p.add_argument("--device", default="cuda", help="'cuda' (default) or 'cpu'")
     a = p.parse_args(argv)
-    if a.n_shards > 1:
-        raise SystemExit(SHARDS_NOT_PORTED)
     run_search(
         a.artifacts_dir, a.prefix, a.dataset, a.data_path, a.k,
         a.t_min, a.t_max, a.t_step, a.n_shards, stream_batch=a.stream_batch,
         scan_dtype=a.scan_dtype, capacity=a.capacity,
         block_margin=a.block_margin, block_q=a.block_q, device=a.device,
+        backend=a.backend,
     )
 
 

@@ -309,5 +309,7 @@ def test_manifest_margin_rescales_and_reads_skipped(capsys):
 
 
 def test_search_refuses_shards():
-    with pytest.raises(NotImplementedError, match="queue A item 6"):
-        tsearch.run_search(".", "nope", "synthetic", n_shards=2)
+    """--n_shards > 1 is served by the sharded engine now; nccl (the
+    default backend) refuses CPU ranks before any rank is spawned."""
+    with pytest.raises(ValueError, match="backend='gloo'"):
+        tsearch.run_search(".", "nope", "synthetic", n_shards=2, device="cpu")

@@ -235,10 +235,15 @@ def test_module_cli_help_unknown_and_unported():
     r = _run("--help")
     assert r.returncode == 0 and "extract-k1" in r.stdout and "distributed" in r.stdout
     assert _run("no-such-command").returncode != 0
-    r = _run("distributed")
-    assert r.returncode != 0 and "queue A item 6" in r.stderr
-    r = _run("search", "--dataset", "x", "--prefix", "y", "--n_shards", "2")
-    assert r.returncode != 0 and "queue A item 6" in r.stderr
+    # both are ported: without a card their default (cuda, nccl) refuses
+    if not torch.cuda.is_available():
+        r = _run("distributed", "--dataset", "x", "--k", "5", "--n_bkt", "8")
+        assert r.returncode != 0 and "no CUDA device" in r.stderr
+        r = _run("search", "--dataset", "x", "--prefix", "y", "--n_shards", "2")
+        assert r.returncode != 0 and "no CUDA device" in r.stderr
+    r = _run("search", "--dataset", "x", "--prefix", "y", "--n_shards", "2",
+             "--device", "cpu")
+    assert r.returncode != 0 and "backend='gloo'" in r.stderr
 
 
 def test_entry_points_need_a_card_unless_told_cpu(tmp_path):

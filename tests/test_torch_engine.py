@@ -318,3 +318,72 @@ def test_sweep_matches(index):
     for a, b in zip(rows_j, rows_t):
         for key in ("threshold", "avg_recall", "avg_nprobe", "avg_cmp"):
             assert a[key] == b[key], key
+
+
+def test_screen_only_matches_lira_tpu(index):
+    """_scan_all(screen_only=True), the phase-profiling cut after the group
+    selection: per query the selected groups' masked minima (as scores) and
+    global group ids (as ids), deduplicated to k, in caller order.  The
+    same group sets as lira_tpu's, minima allclose."""
+    e_j, e_t = _engines(index, block_q=8)
+    x_q = index["x_q"]
+    thr = _thresholds(e_j.probe(x_q))[1]
+    st_j, st_t = e_j._block_state, e_t._block_state
+    h_j = jbs._probe_batch(st_j, e_j, x_q, thr, 8)
+    h_t = tbs._probe_batch(st_t, e_t, x_q, thr, 8)
+    union = np.asarray(h_j["union"])
+    np.testing.assert_array_equal(union, h_t["union"].numpy())
+    supers, tb, ulen = tbs.build_block_unions(union, e_t.tile_start, e_t.tiles_per_bucket,
+                                              st_t.tile_bucket)
+    sel_rows = e_t.block_sel_rows
+    fetch_k = K * index["n_mul"]
+    kg = fetch_k + tbs._resolve_margin(None, st_t.scan_dtype, sel_rows)
+    common = dict(metric="L2", kg=kg, fetch_k=fetch_k, k=K, sel_rows=sel_rows, sub=8)
+    sc_j, id_j = jbs._scan_all(
+        h_j["q"], h_j["probed"], h_j["perm"], jnp.asarray(supers), jnp.asarray(tb),
+        jnp.asarray(ulen), st_j.corpus_flat, st_j.bsq, st_j.rescore_arg, st_j.tiles_ids,
+        st_j.tile_pad_count, qb=h_j["qb"], precision="highest", interpret=True,
+        screen_only=True, dim_scale=st_j.dim_scale, **common)
+    import torch
+
+    sc_t, id_t = tbs._scan_all(
+        h_t["q"], h_t["probed"], h_t["perm"], torch.as_tensor(supers), torch.as_tensor(tb),
+        torch.as_tensor(ulen), st_t.corpus_flat, st_t.bsq, st_t.corpus_flat_f32,
+        st_t.tiles_ids, st_t.tile_pad_count, qb=h_t["qb"], screen_only=True,
+        dim_scale=st_t.dim_scale, screen_sq=st_t.screen_sq, **common)
+    B = len(x_q)
+    id_j, id_t = np.asarray(id_j)[:B], id_t.numpy()[:B]
+    sc_j, sc_t = np.asarray(sc_j)[:B], sc_t.numpy()[:B]
+    for i in range(B):
+        assert set(id_j[i][id_j[i] >= 0]) == set(id_t[i][id_t[i] >= 0]), i
+    fin = np.isfinite(sc_j)
+    np.testing.assert_array_equal(fin, np.isfinite(sc_t))
+    np.testing.assert_allclose(sc_t[fin], sc_j[fin], rtol=1e-5, atol=1e-4)
+    # the rescore's answers differ: exact scores of rows, not group minima
+    r = e_t.search(x_q, thr, K)
+    assert not np.array_equal(r.ids, id_t)
+
+
+def test_blocked_timing_prints_each_phase(index, monkeypatch, capsys):
+    """LIRA_BLOCKED_TIMING=1: blocked_search prints one line of phase
+    times, the stream one line a phase; the results do not change."""
+    _, e_t = _engines(index, block_q=8)
+    x_q = index["x_q"]
+    base = e_t.search(x_q, 0.0, K)
+    base_s = e_t.search_stream(x_q, 0.0, K, batch_size=16)
+    monkeypatch.setenv("LIRA_BLOCKED_TIMING", "1")
+    capsys.readouterr()
+    r = e_t.search(x_q, 0.0, K)
+    out = capsys.readouterr().out
+    assert out.startswith(f"[blocked_search B={len(x_q)}] q_upload+probe ")
+    for phase in ("union_sync", "host_unions U=", "scan+result_sync"):
+        assert phase in out
+    r_s = e_t.search_stream(x_q, 0.0, K, batch_size=16)
+    lines = capsys.readouterr().out.splitlines()
+    assert lines[0].startswith("[stream probe b0] ") and lines[-1].startswith("[stream collect b2]")
+    assert sum("union_sync+scan" in ln for ln in lines) == 3
+    np.testing.assert_array_equal(r.ids, base.ids)
+    np.testing.assert_array_equal(r_s.ids, base_s.ids)
+    monkeypatch.delenv("LIRA_BLOCKED_TIMING")
+    e_t.search(x_q, 0.0, K)
+    assert capsys.readouterr().out == ""

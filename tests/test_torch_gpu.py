@@ -332,3 +332,67 @@ def test_per_query_cuda_engine_matches_cpu_engine(cuda, scan_impl, scan_dtype):
         assert set(r_c.ids[i]) == set(r_g.ids[i]), i
     r_s = e_gpu.search_stream(np.concatenate([xq, xq]), thr, 10, batch_size=300)
     np.testing.assert_array_equal(r_s.ids, np.concatenate([r_g.ids, r_g.ids]))
+
+
+def test_sharded_engine_on_the_card_matches_single_chip(cuda):
+    """The sharded engine on 2 gloo ranks sharing the card (K1 on each
+    rank, 'pallas' by default there) against the card's single-chip
+    blocked engine: nprobe and ndis equal in f32, bf16, int8 and capacity
+    int8, neighbour sets equal in f32 and exact against a numpy oracle over
+    the probed buckets on 64 queries in the others; search_stream ==
+    search."""
+    from lira_tpu_torch.engine.serve import QueryEngine
+    from lira_tpu_torch.labels.scaler import scaled_centroid_distances
+    from lira_tpu_torch.models.probing_mlp import ProbingMLP
+    from lira_tpu_torch.parallel import launch_many, serve_rank
+    from lira_tpu_torch.partition import build_bucket_layout, kmeans_assign, kmeans_fit
+
+    rng = np.random.default_rng(4)
+    x = rng.normal(size=(6000, 32)).astype(np.float32)
+    xq = rng.normal(size=(300, 32)).astype(np.float32)
+    km = kmeans_fit(x, 16, niter=5, device="cpu")
+    layout = build_bucket_layout(kmeans_assign(x, km.centroids, device="cpu"), 16)
+    _, _, sc = scaled_centroid_distances(x, None, km.centroids, device="cpu")
+    mlp = ProbingMLP(16, 32, generator=torch.Generator().manual_seed(0))
+    modes = [dict(scan_dtype=dt) for dt in ("float32", "bfloat16", "int8")]
+    modes.append(dict(scan_dtype="int8", store_f32=False))
+    e0 = QueryEngine(x, layout, km.centroids, sc, mlp, device=cuda)
+    v = np.unique(e0.probe(xq))
+    j = int(0.7 * (len(v) - 1))
+    while v[j + 1] - v[j] < 1e-5:
+        j += 1
+    thr = float((v[j] + v[j + 1]) / 2)
+    reqs = [("search", (xq, thr, 10), {}), ("search_stream", (xq, thr, 10),
+                                             dict(batch_size=128))]
+    calls = [(serve_rank, (x, layout, km.centroids, sc, mlp, reqs),
+              dict(block_q=64, probe_cap=8, **kw)) for kw in modes]
+    outs = launch_many(2, calls, backend="gloo", device="cuda")
+    for kw, out in zip(modes, outs):
+        single = QueryEngine(x, layout, km.centroids, sc, mlp, device=cuda, block_q=64,
+                             probe_cap=8, **kw)
+        r1 = single.search(xq, thr, 10)
+        r2, r_s = out["results"]
+        assert all(r["local_impl"] == "pallas" and r["k1_launches"] > 0
+                   and r["device"] == "cuda:0" for r in out["ranks"]), kw
+        np.testing.assert_array_equal(r1.nprobe, r2.nprobe)
+        np.testing.assert_array_equal(r1.ndis, r2.ndis)
+        if kw["scan_dtype"] == "float32":
+            for i in range(len(xq)):
+                assert set(r1.ids[i]) == set(r2.ids[i]), (kw, i)
+        else:  # each rank selects its own top groups: the oracle decides
+            probed = single._select_probed(xq[:64], thr)
+            for i in range(64):
+                members = np.unique(np.concatenate(
+                    [layout.bucket_members(b) for b in np.nonzero(probed[i])[0]]))
+                dd = ((x[members] - xq[i]) ** 2).sum(axis=1)
+                assert set(r2.ids[i]) == set(members[np.argsort(dd)[:10]]), (kw, i)
+        np.testing.assert_array_equal(r_s.ids, r2.ids)
+
+
+def test_nccl_refuses_ranks_that_share_a_card(cuda):
+    from lira_tpu_torch.parallel import launch
+    from lira_tpu_torch.parallel.sharded_kmeans import sharded_kmeans_fit
+
+    n = torch.cuda.device_count() + 1
+    with pytest.raises(ValueError, match="NCCL refuses two ranks on one device"):
+        launch(n, sharded_kmeans_fit, None, 4, backend="nccl")

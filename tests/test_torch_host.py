@@ -2,9 +2,11 @@
 lira_tpu on the same numpy inputs (device="cpu").
 
 Exact: corpora (byte-identical), xvecs files, bucket layouts, the tour
-rank, the top-k tie rule, and K-Means assignments.  allclose (f32 sums in
-another order): distances rtol 1e-5, centroids rtol 1e-4, scaler moments
-rtol 1e-5, MLP outputs atol 1e-6.
+rank, the top-k tie rule, grouped_topk's values and (without ties) its
+indices, and K-Means assignments.  allclose (f32 sums in another order):
+distances rtol 1e-5, centroids rtol 1e-4, scaler moments rtol 1e-5, MLP
+outputs atol 1e-6.  Also profiling's StageStats and device_trace on the
+CPU.
 """
 
 import os
@@ -21,6 +23,8 @@ from lira_tpu.labels.scaler import scaled_centroid_distances as j_scaled
 from lira_tpu.models.probing_mlp import forward as j_forward
 from lira_tpu.models.probing_mlp import init_params
 from lira_tpu.ops import distance as jdist
+from lira_tpu.ops.topk import grouped_topk as j_grouped_topk
+from lira_tpu.profiling import StageStats as JStageStats
 from lira_tpu.partition import assign as jassign
 from lira_tpu.partition import kmeans as jkm
 from lira_tpu.partition.order import centroid_tour_rank as j_rank
@@ -29,7 +33,8 @@ from lira_tpu_torch.io import datasets as tds
 from lira_tpu_torch.labels.scaler import scaled_centroid_distances as t_scaled
 from lira_tpu_torch.models.probing_mlp import ProbingMLP, params_from_jax, params_to_jax
 from lira_tpu_torch.ops import distance as tdist
-from lira_tpu_torch.ops.topk import top_k
+from lira_tpu_torch.ops.topk import grouped_topk, top_k
+from lira_tpu_torch.profiling import StageStats, device_trace
 from lira_tpu_torch.partition import assign as tassign
 from lira_tpu_torch.partition import kmeans as tkm
 from lira_tpu_torch.partition.order import centroid_tour_rank as t_rank
@@ -98,6 +103,55 @@ def test_top_k_follows_lax_tie_rule():
         v_t, i_t = top_k(torch.from_numpy(x), k)
         np.testing.assert_array_equal(i_t.numpy(), np.asarray(i_j))
         np.testing.assert_array_equal(v_t.numpy(), np.asarray(v_j))
+
+
+@pytest.mark.parametrize("c,k,group", [(64, 10, 128), (200, 1, 32), (1000, 10, 32),
+                                       (5000, 100, 32), (4099, 7, 128)])
+def test_grouped_topk_matches_lira_tpu(c, k, group):
+    """Narrow rows (one top-k), strided groups with +inf padding (c % group
+    != 0); values exact, indices exact where no two scores tie."""
+    rng = np.random.default_rng(c)
+    scores = rng.permutation(17 * c).astype(np.float32).reshape(17, c)  # no ties
+    v_j, i_j = j_grouped_topk(jnp.asarray(scores), k, group=group)
+    v_t, i_t = grouped_topk(torch.from_numpy(scores), k, group=group)
+    np.testing.assert_array_equal(v_t.numpy(), np.asarray(v_j))
+    np.testing.assert_array_equal(i_t.numpy(), np.asarray(i_j))
+    np.testing.assert_array_equal(i_t.numpy(), np.argsort(scores, axis=1)[:, :k])
+
+
+def test_grouped_topk_with_ties_points_at_equal_values():
+    rng = np.random.default_rng(9)
+    scores = rng.integers(0, 50, size=(9, 3000)).astype(np.float32)
+    v_t, i_t = grouped_topk(torch.from_numpy(scores), 20, group=64)
+    v_j, _ = j_grouped_topk(jnp.asarray(scores), 20, group=64)
+    np.testing.assert_array_equal(v_t.numpy(), np.asarray(v_j))
+    np.testing.assert_array_equal(np.take_along_axis(scores, i_t.numpy(), 1), v_t.numpy())
+    assert all(len(set(r)) == 20 for r in i_t.numpy())
+
+
+def test_stage_stats_as_lira_tpu():
+    t, j = StageStats(), JStageStats()
+    for st in (t, j):
+        with st.stage("a"):
+            pass
+        with pytest.raises(ValueError), st.stage("b"):
+            raise ValueError  # a failing stage is recorded too
+        with st.stage("a"):
+            pass
+    assert set(t.times) == set(j.times) == {"a", "b"}
+    assert [ln.split(":")[0] for ln in t.report().splitlines()] == sorted(
+        t.times, key=lambda n: -t.times[n])
+
+
+def test_device_trace_writes_a_chrome_trace_on_the_cpu(tmp_path):
+    with device_trace(str(tmp_path / "tr"), device="cpu") as prof:
+        torch.ones(64, 64) @ torch.ones(64, 64)
+    assert (tmp_path / "tr" / "trace.json").stat().st_size > 0
+    assert any("mm" in e.key for e in prof.key_averages())
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            with device_trace(str(tmp_path / "tr2")):
+                pass
 
 
 @pytest.mark.parametrize("init", ["random", "kmeans++"])
