@@ -28,6 +28,11 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      B=2048, T=64, d=128 (lists with -1 holes, a tile listed twice, a
      partly padded tile, one tile in every query's list), and one small
      case at d=960, timed, with the list inversion timed apart;
+     then every kernel on one table built on the card past 2^31 elements
+     (17M rows x 128: 8.7 GB f32, and 2^31 bytes in bf16 and int8), the
+     rows each comparison reads lying past the mark (`phase_large_tables`):
+     K1 in f32, bf16, int8, K2 in "highest", "default", int8 over the
+     whole table, K3 in f32, each against its plain version on those rows;
   5. the trained index at full size (bench.py's recipe): a 1M×128
      hard-regime corpus, K-Means to 1024 buckets, the self-kNN (k=10)
      through the fused path and K2 in f32 (123 launches, checked exact on
@@ -51,9 +56,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      - the per-query engines, scan_impl "pallas" (K3) and "xla", in f32
        and bf16 on the full 65536-query batch: nprobe/ndis equal to the
        blocked f32 engine's, neighbour sets equal to its up to ties,
-       recall beside it, the oracle, stream == search, 32 launches per
-       batch of each of K3's three kernels (inversion, scan, merge); K3
-       alone at the main path's inputs (one 2048-query block and all 32)
+       recall beside it, the oracle, stream (2 batches) == search, 32
+       launches per batch of each of K3's three kernels (inversion, scan,
+       merge); K3 alone at the main path's inputs (one 2048-query block and all 32)
        against its plain version and a gather + bmm yardstick, the xla
        scan on the same blocks, its inversion and merge kernels against
        their plain versions, and the seconds of `_probe_tiles`; in
@@ -109,6 +114,18 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
     gloo` on the small-scale corpus written as a dataset (the sharded
     self-kNN against knn_fused on 1024 rows, the sharded assignment against
     kmeans_assign, the sweep CSV, K2 and K1 launched on each rank);
+  - last, the JAX package's own 10M scale (`phase_largescale_10m`,
+    scripts/torch_10m_demo.py's stages): the 10M x 128 hard-regime corpus,
+    2048 buckets, exact GT of 2048 queries, `run_largescale` (1% subset,
+    K2's self-kNN, 40 epochs, full-corpus assignment and redundancy, both
+    analytic sweeps: the MLP learned, part 1 >= part 0, the redundancy of
+    4096 rows equal to the plain rule), the layout's rows and f32 elements
+    against 2^31, then the blocked engine in f32 over the demo's sweep
+    (recall non-increasing in the threshold, >= 0.95 at some threshold
+    within 2.5% ndis) and a 65536-query batch + stream at thr 0.1, then
+    bf16 and int8 at thr 0.1 on half the batch (margins calibrated): the
+    64-query oracle and stream == per-batch search in every dtype, K1
+    launched in each, peak memory;
   9. a `{"kernels": [...]}` line (K1 ×3 dtypes, K2 ×3 modes, K3 — one launch and a
      whole batch — and K3's list inversion and merge kernels, at the main
      path's shapes: time, plain time, bound, library yardstick, launches
@@ -117,7 +134,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      in phase 7 in the record's own dtype; K1's `sharded_launches` per rank
      (f32 also `sharded_nccl_launches` and the distributed pipeline's
      `distributed_launches`) and K2 f32's `sharded_knn_launches` per rank
-     in the distributed pipeline, and for K3 the xla scan's time,
+     in the distributed pipeline, `largescale_10m_launches` (K1 by
+     dtype in the 10M phase's serving, K2 f32 in its self-kNN), and for
+     K3 the xla scan's time,
      the streamed floor and the list inversion's time on the same inputs).
 The last line is {"ok": true, "device": {...}}.
 """
@@ -153,6 +172,11 @@ K3_MERGE_REPLACES = "lira_tpu/engine/pallas_scan.py:247"
 # the TPU record (BENCH_r05.json; only its hardware-independent columns)
 TPU_RECALL, TPU_NDIS = 0.8370, 7755
 MIN_INT8_RECALL = 0.75  # the trained MLP's floor at the bench's operating point
+# the 10M recipe's gate (recall@10 at some swept threshold within an ndis
+# share) and the JAX record at thr 0.1 (logs/tpu_10m_hard_run6.log; quality
+# columns only)
+MIN_10M_RECALL, MAX_10M_NDIS = 0.95, 0.025
+TPU_10M_RECALL, TPU_10M_NDIS = 0.9639, 0.0151
 CAPACITY_RECALL_DROP = 0.01  # capacity mode may lose at most this much recall@10
 DTYPE_NAME = {torch.float32: "float32", torch.bfloat16: "bfloat16", torch.int8: "int8"}
 EPS32 = float(np.finfo(np.float32).eps)
@@ -160,6 +184,18 @@ EPS32 = float(np.finfo(np.float32).eps)
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+_START = time.perf_counter()
+
+
+def timed(phase, *args, **kw):
+    """Runs one phase and logs its seconds and the run's so far."""
+    t0 = time.perf_counter()
+    out = phase(*args, **kw)
+    log(f"[{phase.__name__}: {time.perf_counter() - t0:.1f}s; "
+        f"{time.perf_counter() - _START:.1f}s into the run]")
+    return out
 
 
 def time_ms(fn, reps: int = 5) -> float:
@@ -638,6 +674,144 @@ def phase_k3_grid(dev) -> None:
         torch.cuda.empty_cache()
 
 
+LARGE_MARK = 1 << 31  # elements (f32) or bytes (bf16, int8) a flat offset passes int32 at
+
+
+def phase_large_tables(dev, n_super=16_640, d=128, qb=1024, U=32, n_q=256, B=2048, T=16,
+                       k=20, reps=3) -> dict:
+    """K1 (f32, bf16, int8), K2 ("highest", "default", int8) and K3 (f32)
+    on one table built on the card from a seeded torch.Generator:
+    n_super·1024 rows × d, past 2^31 elements (f32 and int8: 2^31 bytes
+    too; bf16's table passes 2^31 bytes at half the rows, and the same rows
+    are used).  Every supertile and tile the comparisons read lies past the
+    mark, at the table's end; each kernel is held against its plain
+    version, which reads only those rows, within the grids' tolerances.
+    K2 sweeps the whole table (n_pad·d > 2^31) and its last groups and the
+    groups around the mark are compared.  Returns {case: max |err|}."""
+    from lira_tpu_torch.engine.block_scan import screen_queries
+    from lira_tpu_torch.engine.pallas_scan import pallas_probed_scan, probed_scan_ref
+    from lira_tpu_torch.engine.screen import screen_norms, union_groupmin, union_groupmin_ref
+    from lira_tpu_torch.ops.groupmin import GROUP, groupmin, groupmin_ref
+
+    n_rows = n_super * 1024
+    if n_rows * d <= LARGE_MARK:
+        raise ValueError(f"phase_large_tables: {n_rows} x {d} does not pass 2^31 elements")
+    t0 = time.perf_counter()
+    g = torch.Generator(device=dev).manual_seed(11)
+    x = torch.empty((n_rows, d), dtype=torch.float32, device=dev)
+    amax = torch.zeros(d, device=dev)
+    for s in range(0, n_rows, 1 << 22):  # row chunks: no table-sized temporaries
+        x[s : s + (1 << 22)] = torch.randn((min(1 << 22, n_rows - s), d), generator=g,
+                                           device=dev)
+        amax = torch.maximum(amax, x[s : s + (1 << 22)].abs().amax(0))
+    dim_scale = torch.clamp_min(amax, 1e-30) / 127.0
+    xb = torch.empty((n_rows, d), dtype=torch.bfloat16, device=dev)
+    x8 = torch.empty((n_rows, d), dtype=torch.int8, device=dev)
+    for s in range(0, n_rows, 1 << 22):
+        xs = x[s : s + (1 << 22)]
+        xb[s : s + (1 << 22)] = xs.to(torch.bfloat16)
+        x8[s : s + (1 << 22)] = torch.clamp(torch.round(xs / dim_scale), -127, 127).to(
+            torch.int8)
+    torch.cuda.synchronize()
+    mark_super = LARGE_MARK // (1024 * d)  # the first supertile wholly past the mark
+    log(f"large tables: {n_rows:,} x {d} ({n_rows * d / LARGE_MARK:.4f} x 2^31 elements; "
+        f"f32 {x.numel() * 4 / 2**30:.2f} GiB, bf16 {xb.numel() * 2 / 2**30:.2f} GiB, "
+        f"int8 {x8.numel() / 2**30:.2f} GiB) built on the card in "
+        f"{time.perf_counter() - t0:.1f}s; supertile {mark_super} onward lies past the mark")
+    gq = torch.Generator(device="cpu").manual_seed(12)
+    errs = {}
+
+    # K1: two block rows, every slot a supertile past the mark, the table's
+    # last one included, block row 1's union cut short
+    tail = n_super - mark_super
+    supers = (mark_super + torch.randint(0, tail, (2, U), generator=gq, dtype=torch.int32))
+    supers[0, 0] = n_super - 1
+    supers = supers.to(dev)
+    ulen = torch.tensor([U, U // 2 + 1], dtype=torch.int32, device=dev)
+    qf = torch.randn(2 * qb, d, generator=gq).to(dev)
+    for dtype, table in ((torch.float32, x), (torch.bfloat16, xb), (torch.int8, x8)):
+        q, t_eff, s2 = screen_queries(qf, dtype, dim_scale, "L2")
+        xsq = screen_norms(table, s2)
+        kw = dict(qb=qb, metric="L2", sel_rows=32, t_eff=t_eff, s2=s2, xsq=xsq)
+        out = union_groupmin(q, table, supers, ulen, **kw)
+        ref = union_groupmin_ref(q, table, supers, ulen, **kw)
+        ms = time_ms(lambda: union_groupmin(q, table, supers, ulen, **kw), reps)
+        read = table.view(-1, 1024, d)[supers.long()].reshape(-1, d)
+        tol = k1_tolerance(q, read, "L2", t_eff, s2)
+        err = float((out - ref).abs().max())
+        name = f"K1 {DTYPE_NAME[dtype]}"
+        log(f"{name} past 2^31 ({table.numel() * table.element_size() / 2**30:.2f} GiB "
+            f"table, supertiles {int(supers.min())}..{int(supers.max())}): "
+            f"max|kernel-plain|={err:.3g} (tol {tol:.3g}), {ms:.3f} ms")
+        if err > tol or not bool((out[1, ulen[1] * 32:] == 3e38).all()):
+            raise AssertionError(f"{name} on a table past 2^31: err {err} (tol {tol}) "
+                                 f"or dead slots not 3e38")
+        errs[name] = err
+        del out, ref, read, xsq
+
+    # K2: the whole table swept; the last groups and those around the mark
+    n_groups = n_rows // GROUP
+    mark_group = LARGE_MARK // (GROUP * d)
+    q2 = torch.randn(n_q, d, generator=gq).to(dev)
+    bsq = screen_norms(x)
+    for mode in ("highest", "default", "int8"):
+        if mode == "int8":
+            qp = q2 * dim_scale[None, :]
+            t = torch.clamp_min(qp.abs().amax() / 127.0, 1e-30)
+            qm = torch.clamp(torch.round(qp / t), -127, 127).to(torch.int8)
+            kw, table = dict(metric="L2", t_eff=(2.0 * t).reshape(1, 1)), x8
+        elif mode == "default":
+            qm, kw, table = q2.to(torch.bfloat16), dict(metric="L2", precision=mode), xb
+        else:
+            qm, kw, table = q2, dict(metric="L2", precision=mode), x
+        out = groupmin(qm, table, bsq, **kw)
+        ms = time_ms(lambda: groupmin(qm, table, bsq, **kw), reps)
+        err, tol = 0.0, 0.0
+        for lo, hi in ((mark_group - 64, mark_group + 64), (n_groups - 256, n_groups)):
+            part = table[lo * GROUP : hi * GROUP]
+            ref = groupmin_ref(qm, part, bsq[lo * GROUP : hi * GROUP], **kw)
+            err = max(err, float((out[:, lo:hi] - ref).abs().max()))
+            tol = max(tol, k2_tolerance(qm, part))
+        name = f"K2 {mode}"
+        log(f"{name} past 2^31 (n_pad {n_rows:,} x d {d} = {n_rows * d:,} elements, "
+            f"{table.numel() * table.element_size() / 2**30:.2f} GiB; groups "
+            f"{mark_group - 64}..{mark_group + 63} and the last 256 compared): "
+            f"max|kernel-plain|={err:.3g} (tol {tol:.3g}), {ms:.3f} ms")
+        if err > tol or out.shape != (n_q, n_groups):
+            raise AssertionError(f"{name} on a table past 2^31: {err} > {tol}")
+        errs[name] = err
+        del out
+    del bsq, xb, x8
+
+    # K3: B queries, each listing T tiles past the mark (the last one included)
+    n_tiles = n_rows // 128
+    mark_tile = LARGE_MARK // (128 * d)
+    corpus = x.view(n_tiles, 128, d)
+    ids = torch.arange(n_rows, dtype=torch.int32, device=dev).view(n_tiles, 128)
+    sq = screen_norms(x).view(n_tiles, 128)
+    tiles = mark_tile + torch.randint(0, n_tiles - mark_tile, (B, T), generator=gq,
+                                      dtype=torch.int32)
+    tiles[:, 0] = n_tiles - 1
+    tiles[torch.rand(B, T, generator=gq) < 0.2] = -1
+    tiles, q3 = tiles.to(dev), torch.randn(B, d, generator=gq).to(dev)
+    s_k, i_k = pallas_probed_scan(q3, tiles, corpus, ids, sq, k, "L2")
+    s_r, i_r = probed_scan_ref(q3, tiles, corpus, ids, sq, k, "L2")
+    ms = time_ms(lambda: pallas_probed_scan(q3, tiles, corpus, ids, sq, k, "L2"), reps)
+    tol = k3_tolerance(q3, corpus[torch.unique(tiles[tiles >= 0]).long()])
+    err, bad = k3_compare(s_k, i_k, s_r, i_r, tol)
+    if not bool((i_k[i_k >= 0] >= mark_tile * 128).all()):
+        raise AssertionError("K3 past 2^31: an id from before the mark")
+    log(f"K3 float32 past 2^31 ({n_tiles:,} tiles, lists in tiles {mark_tile}..{n_tiles - 1}, "
+        f"B={B}, T={T}, k={k}): max|kernel-plain|={err:.3g} (tol {tol:.3g}), {bad} queries "
+        f"with other ids, {ms:.3f} ms")
+    if err > tol or bad:
+        raise AssertionError(f"K3 on a table past 2^31: err {err} (tol {tol}), {bad} differ")
+    errs["K3 float32"] = err
+    del x, corpus, ids, sq
+    torch.cuda.empty_cache()
+    return errs
+
+
 def check_self_knn(x_dev, knn, k, n_rows=1024, seed=0) -> None:
     """The self-kNN on `n_rows` sampled rows against a brute-force top-k in
     true fp32 on the card (the rule of tests/test_knn_pallas.py): the f64
@@ -976,7 +1150,7 @@ def phase_serving(dev, idx, batch=65536, n_gt=4096, k=10):
             f"search {batch / r.elapsed:.0f} QPS ({r.elapsed:.3f}s), "
             f"stream {len(big) / r_s.elapsed:.0f} QPS ({r_s.elapsed:.3f}s), "
             f"peak device memory {peak / 2**30:.2f} GiB")
-        if r.ids.shape != (batch, k) or not np.isfinite(r.scores[r.ids >= 0]).all():
+        if r.ids.shape[1] != k or not np.isfinite(r.scores[r.ids >= 0]).all():
             raise AssertionError("search result has the wrong shape or non-finite scores")
         if scan_dtype == "int8" and recall < MIN_INT8_RECALL:
             raise AssertionError(f"int8 recall@{k} {recall:.4f} < {MIN_INT8_RECALL} "
@@ -1084,7 +1258,7 @@ def phase_per_query(dev, idx, run, batch=65536, k=10):
     thr, gt = run["thr"], run["gt"]
     base = run["results"]["float32"]
     r_b = base["r"]
-    big = np.tile(x_q, (4, 1))
+    big = np.tile(x_q, (2, 1))  # 2 batches (4 before the 10M phase came)
     n_blocks = -(-batch // 2048)
     rng = np.random.default_rng(1)
     got, kernels = {}, []
@@ -1108,11 +1282,11 @@ def phase_per_query(dev, idx, run, batch=65536, k=10):
             want = n_blocks if impl == "pallas" else 0
             log(f"K3 launches [{tag}] (inversion, scan, merge): search {launches}, stream "
                 f"{launches_s} (want {want} each per batch)")
-            if (set(launches.values()) != {want} or set(launches_s.values()) != {4 * want}):
+            if (set(launches.values()) != {want} or set(launches_s.values()) != {2 * want}):
                 raise AssertionError(f"[{tag}] K3 launched {launches}/{launches_s} times")
             if not (np.array_equal(r.nprobe, r_b.nprobe) and np.array_equal(r.ndis, r_b.ndis)):
                 raise AssertionError(f"[{tag}] nprobe/ndis differ from the blocked engine's")
-            if r.ids.shape != (batch, k) or not np.isfinite(r.scores[r.ids >= 0]).all():
+            if r.ids.shape[1] != k or not np.isfinite(r.scores[r.ids >= 0]).all():
                 raise AssertionError(f"[{tag}] wrong shape or non-finite scores")
             differ, pq_near, blk_near = set_diff(x_d, x_q, r.ids, r_b.ids)
             recall = recall_at(r.ids, gt)
@@ -1693,23 +1867,169 @@ def check_largescale(dev, cfg, x_d, k, n_check=4096, tie=1e-5):
         scores = state.params(feats, xb).cpu().numpy()
     del xb, feats, state
     rows = np.random.default_rng(5).choice(len(x_d), n_check, replace=False)
+    check_redundancy_sample(final, native, scores[rows], rows, cfg.sigma, cfg.n_mul, tie)
+
+
+def check_redundancy_sample(final, native, scores, rows, sigma, n_mul, tie=1e-5):
+    """The final assignment of the sampled `rows` against the plain rule
+    from their MLP `scores` (one row each) and native buckets; rows with a
+    score within `tie` of sigma or of a neighbour in the first n_mul + 1
+    ranks are counted, not compared."""
     compared = near = 0
-    for i in rows:
-        sc = scores[i]
-        top = np.sort(sc)[::-1][: cfg.n_mul + 1]
-        if np.abs(sc - cfg.sigma).min() < tie or (np.diff(top) > -tie).any():
+    for sc, i in zip(scores, rows):
+        top = np.sort(sc)[::-1][: n_mul + 1]
+        if np.abs(sc - sigma).min() < tie or (np.diff(top) > -tie).any():
             near += 1
             continue
-        want = plain_redundancy_row(sc, int(native[i]), cfg.sigma, cfg.n_mul)
+        want = plain_redundancy_row(sc, int(native[i]), sigma, n_mul)
         if not np.array_equal(final[i], want):
             raise AssertionError(f"largescale: row {i} assigned {final[i]}, the plain rule "
                                  f"gives {want}")
         compared += 1
-    log(f"largescale redundancy: {compared} of {n_check} sampled rows equal to the plain "
+    log(f"largescale redundancy: {compared} of {len(rows)} sampled rows equal to the plain "
         f"rule ({near} near-ties not compared); replicas per row "
         f"{float((final >= 0).sum(axis=1).mean()):.3f}")
-    if compared < n_check // 2:
+    if compared < len(rows) // 2:
         raise AssertionError(f"largescale: only {compared} rows free of near-ties")
+
+
+def load_script(name: str):
+    """A script of the repo's scripts/ folder as a module (not run)."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts", name)
+    spec = importlib.util.spec_from_file_location(name.removesuffix(".py"), path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def phase_largescale_10m(dev, n=10_000_000, n_bkt=2048, n_q=2048, n_epoch=40, k=10,
+                         thr=0.1, batch=65536, n_check=4096, n_cal=256) -> dict:
+    """scripts/torch_10m_demo.py's stages at the JAX package's own scale:
+    the hard-regime corpus, exact GT, `run_largescale` (1% subset, K2's
+    self-kNN, 40 epochs, full-corpus assignment and redundancy, the two
+    analytic sweeps), then the final layout served by the blocked engine in
+    f32 over the demo's sweep and a 65536-query batch of distinct queries
+    (`query_batch`) + stream at `thr`, then bf16 and int8 at `thr` on half
+    that batch (margins calibrated on `n_cal` queries over
+    calibrate_block_margin's whole ladder: on 2048 queries every int8 rung
+    up to 8 groups missed a neighbour, and the fallback, every group of the
+    corpus, makes a 65536-query search gather the table for each query),
+    each engine freed before the next.  Gates: the MLP learned, part 1 >=
+    part 0, the redundancy of `n_check` sampled rows equal to the plain rule; recall
+    non-increasing in the threshold and >= MIN_10M_RECALL at some swept
+    threshold with ndis <= MAX_10M_NDIS of the corpus; the 64-query oracle
+    and stream == per-batch search in every dtype; K1 and K2 launched.
+    Returns the launches {"k2": n, dtype: K1 launches}."""
+    from lira_tpu_torch.engine.calibrate import calibrate_block_margin
+    from lira_tpu_torch.engine.screen import union_groupmin
+    from lira_tpu_torch.ops.distance import l2_to_centroids
+    from lira_tpu_torch.ops.groupmin import groupmin
+
+    demo = load_script("torch_10m_demo.py")
+    st = demo.Stages(dev, lambda m: log(f"10M {m}"))
+    x_d, x_q, _ = st.run("corpus", demo.make_corpus, n, n_q, n_bkt, "hard", None, log)
+    gt = st.run("exact GT", demo.ground_truth, x_d, x_q, n_bkt, "hard", dev)
+    cfg = demo.demo_config(n, n_bkt, n_epoch)
+    groupmin.launches = 0
+    res = st.run("run_largescale", demo.build_index, x_d, x_q, gt, cfg, dev, log)
+    counts = {"k2": groupmin.launches}
+    log(f"10M: K2 launches in run_largescale (the subset self-kNN): {counts['k2']}")
+    if counts["k2"] <= 0:
+        raise AssertionError("10M: the subset self-kNN did not launch K2")
+
+    # the untrained MLP's outputs sit near 0.5, so it predicts about half
+    # of the 2048 buckets (and finds half the kNN): learning shows as fewer
+    # predicted buckets at a higher kNN recall per predicted bucket
+    first, last = res["epoch_rows"][0], res["epoch_rows"][-1]
+    per0, per1 = (row["KNN Recall"] / max(row["nprobe predict"], 1e-9) for row in (first, last))
+    log(f"10M epochs: kNN recall {first['KNN Recall']} at {first['nprobe predict']} predicted "
+        f"buckets -> {last['KNN Recall']} at {last['nprobe predict']} "
+        f"({per1 / max(per0, 1e-12):.1f}x the recall per predicted bucket)")
+    if not (last["nprobe predict"] < first["nprobe predict"] and per1 > per0):
+        raise AssertionError("10M: the MLP did not learn")
+    p0, p1 = res["sweep_parts"]
+    for a, b in zip(p0, p1):
+        if b.recall < a.recall - 1e-12 or b.computations < a.computations:
+            raise AssertionError(f"10M: part 1 below part 0 at threshold {a.threshold}: "
+                                 f"{b} vs {a}")
+    if p1[0].recall < 0.9:
+        raise AssertionError(f"10M: part 1 recall {p1[0].recall} < 0.9 at threshold "
+                             f"{p1[0].threshold}")
+    rows = np.random.default_rng(5).choice(n, n_check, replace=False)
+    with torch.no_grad():
+        xs = torch.as_tensor(x_d[rows], device=dev)
+        feats = ((l2_to_centroids(xs, torch.as_tensor(res["kmeans"].centroids, device=dev))
+                  - torch.as_tensor(res["scaler"].mean_, device=dev))
+                 / torch.as_tensor(res["scaler"].scale_, device=dev))
+        scores = res["state"].params(feats, xs).cpu().numpy()
+    check_redundancy_sample(res["data_2_bkt"], res["assign_full"], scores, rows, cfg.sigma,
+                            cfg.n_mul)
+    layout = res["layout"]
+    elements = layout.total * x_d.shape[1]
+    why = ("" if elements > LARGE_MARK else
+           f"; not past it: n_mul {cfg.n_mul}, redundancy x{layout.total / n:.3f} of "
+           f"{n:,} rows gives {layout.total:,} rows")
+    log(f"10M layout: {layout.total:,} rows (x{layout.total / n:.3f}; JAX record "
+        f"19,208,731, x1.921), {elements:,} f32 elements = {elements / LARGE_MARK:.4f} x "
+        f"2^31{why}")
+
+    idx = dict(x_d=x_d, x_q=x_q, layout=layout)
+    big = demo.query_batch(x_d, x_q, batch)  # x_q, then distinct perturbed corpus rows
+    rng = np.random.default_rng(0)
+    for mode in ("float32", "bfloat16", "int8"):
+        torch.cuda.reset_peak_memory_stats()
+        eng = st.run(f"engine {mode}", demo.make_engine, x_d, res, cfg, mode, dev)
+        if mode != "float32":
+            t0 = time.perf_counter()
+            cal = calibrate_block_margin(eng, x_q[:n_cal], thr, k)
+            eng.block_margin = cal.margin
+            log(f"10M calibrate[{mode}] on {n_cal} queries: zero-miss at "
+                f"{cal.zero_miss_margin}, margin {cal.margin} (miss rates {cal.miss_rates}): "
+                f"{time.perf_counter() - t0:.1f}s")
+            if cal.zero_miss_margin is None:
+                raise AssertionError(f"10M calibrate[{mode}]: no rung of {cal.ladder} is "
+                                     f"zero-miss")
+        union_groupmin.launches = 0
+        if mode == "float32":
+            served = st.run("serve float32", demo.serve, eng, x_q, gt, n,
+                            demo.HARD_THRESHOLDS, thr, big, lambda m: log(f"10M {m}"))
+            r = served["batch"]
+            sweep = served["rows"]
+            for a, b in zip(sweep, sweep[1:]):
+                if b["avg_recall"] > a["avg_recall"] + 1e-12:
+                    raise AssertionError(f"10M: recall rose with the threshold: {a} -> {b}")
+            best = [row for row in sweep if row["avg_cmp"] <= MAX_10M_NDIS * n]
+            top = max(best, key=lambda row: row["avg_recall"], default=None)
+            if top is None or top["avg_recall"] < MIN_10M_RECALL:
+                raise AssertionError(f"10M: no swept threshold reaches recall@{k} "
+                                     f"{MIN_10M_RECALL} within ndis {MAX_10M_NDIS:.1%}: {sweep}")
+            log(f"10M recall gate: {top['avg_recall']:.4f} at thr {top['threshold']} with ndis "
+                f"{top['avg_cmp'] / n:.2%} (>= {MIN_10M_RECALL} within {MAX_10M_NDIS:.1%}; "
+                f"JAX record {TPU_10M_RECALL} at {TPU_10M_NDIS:.2%})")
+        else:
+            # half the batch: a cut for the time limit
+            r, _ = st.run(f"serve {mode}", demo.serve_batch, eng, big[: batch // 2], thr,
+                          lambda m: log(f"10M {m}"))
+        counts[mode] = union_groupmin.launches
+        peak = torch.cuda.max_memory_allocated()
+        recall = recall_at(r.ids[:n_q], gt)
+        log(f"10M serve[{mode}] thr {thr}: margin {eng.block_margin} nprobe "
+            f"{r.nprobe.mean():.2f} ndis {r.ndis.mean():.0f} ({r.ndis.mean() / n:.3%}) "
+            f"recall@{k} {recall:.4f} on the {n_q} queries, batch {len(r.ids)}: "
+            f"{len(r.ids) / r.elapsed:.0f} QPS, "
+            f"K1 launches {counts[mode]}, peak device memory {peak / 2**30:.2f} GiB")
+        if counts[mode] <= 0:
+            raise AssertionError(f"10M serve[{mode}]: K1 was not launched")
+        if r.ids.shape[1] != k or not np.isfinite(r.scores[r.ids >= 0]).all():
+            raise AssertionError(f"10M serve[{mode}]: wrong shape or non-finite scores")
+        check_oracle(eng, r, idx, thr, k, f"10M {mode}", rng, n_chk=min(256, n_q),
+                     n=min(64, n_q))
+        del eng, r
+        torch.cuda.empty_cache()
+    log("10M stages: " + ", ".join(f"{name} {sec:.1f}s" for name, sec in st.seconds.items()))
+    return counts
 
 
 def phase_sel_rows_memory(dev, idx, run, k=10, sels=(1, 8, 16)):
@@ -1942,7 +2262,7 @@ def phase_sharded(dev, idx, run, batch=65536, k=10):
             raise AssertionError(f"[{tag}] a rank did not serve through K1: {ranks}")
         if not (np.array_equal(r.nprobe, r6.nprobe) and np.array_equal(r.ndis, r6.ndis)):
             raise AssertionError(f"[{tag}] nprobe/ndis differ from phase 6's")
-        if r.ids.shape != (batch, k) or not np.isfinite(r.scores[r.ids >= 0]).all():
+        if r.ids.shape[1] != k or not np.isfinite(r.scores[r.ids >= 0]).all():
             raise AssertionError(f"[{tag}] wrong shape or non-finite scores")
         check_stream(r, r_s, batch, tag)
         recall = recall_at(r.ids, gt)
@@ -2064,19 +2384,20 @@ def main() -> int:
     # the script's own f32 products (the brute-force checks, the library
     # yardsticks, the tolerances) in true fp32, as the port's f32 paths are
     with true_fp32():
-        phase_k1_grid(dev)
-        phase_k1_engine_any_width(dev)
-        phase_k2_grid(dev)
-        phase_k3_grid(dev)
-        idx = phase_trained_index(dev)
-        kernels, run = phase_serving(dev, idx)
-        kernels += phase_per_query(dev, idx, run)
-        phase_native(dev, idx, run)
-        phase_capacity(dev, idx, run)
-        phase_ivf(dev, idx, run)
-        phase_sel_rows_memory(dev, idx, run)
-        sharded = phase_sharded(dev, idx, run)
-        cli_counts = phase_cli(dev, idx, run)
+        timed(phase_k1_grid, dev)
+        timed(phase_k1_engine_any_width, dev)
+        timed(phase_k2_grid, dev)
+        timed(phase_k3_grid, dev)
+        timed(phase_large_tables, dev)
+        idx = timed(phase_trained_index, dev)
+        kernels, run = timed(phase_serving, dev, idx)
+        kernels += timed(phase_per_query, dev, idx, run)
+        timed(phase_native, dev, idx, run)
+        timed(phase_capacity, dev, idx, run)
+        timed(phase_ivf, dev, idx, run)
+        timed(phase_sel_rows_memory, dev, idx, run)
+        sharded = timed(phase_sharded, dev, idx, run)
+        cli_counts = timed(phase_cli, dev, idx, run)
         del run
         kernels += idx.pop("k2")
         del idx
@@ -2088,8 +2409,10 @@ def main() -> int:
             elif rec["name"].startswith("groupmin"):
                 dt = rec["name"].split("[")[1].split(",")[0]
                 rec["cli_launches"] = cli_counts["k2_by_dtype"].get(dt, 0)
-        phase_smallscale(dev)
-        dist_ranks = phase_distributed(dev)
+        # one epoch each (three before the 10M phase came): their checks
+        # count epochs, they do not read the model's quality
+        timed(phase_smallscale, dev, n_epoch=1)
+        dist_ranks = timed(phase_distributed, dev, n_epoch=1)
         for rec in kernels:  # the sharded path's launches, per rank
             if rec["name"].startswith("union_groupmin"):
                 dt = rec["name"].split("[")[1].split(",")[0]
@@ -2099,6 +2422,13 @@ def main() -> int:
                     rec["distributed_launches"] = [r["k1_launches"] for r in dist_ranks]
             elif rec["name"] == "groupmin[float32,L2]":
                 rec["sharded_knn_launches"] = [r["k2_launches"] for r in dist_ranks]
+        counts_10m = timed(phase_largescale_10m, dev)
+        for rec in kernels:  # the 10M phase's launches (K1 by screen dtype, K2 f32)
+            if rec["name"].startswith("union_groupmin"):
+                rec["largescale_10m_launches"] = counts_10m[rec["name"].split("[")[1]
+                                                            .split(",")[0]]
+            elif rec["name"] == "groupmin[float32,L2]":
+                rec["largescale_10m_launches"] = counts_10m["k2"]
     log(smi)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

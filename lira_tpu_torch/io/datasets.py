@@ -19,6 +19,11 @@ import numpy as np
 
 from .xvecs import read_xvecs, write_xvecs
 
+# rows of ambient noise drawn at a time: numpy's normal draws element by
+# element from the generator's stream, so chunked draws give the same bytes
+# as one (n, dim) draw, without its float64 temporary (51 GB at 50M x 128)
+_NOISE_CHUNK = 1 << 20
+
 # The calibrated hard-regime generator settings (at 1M x 128 / 1024
 # partitions, IVF needs nprobe ~ 12/24/32 for recall 0.90/0.95/0.98).
 # Must stay equal to lira_tpu's HARD_REGIME: the corpus signature of every
@@ -32,6 +37,26 @@ HARD_REGIME = dict(
 def hard_regime_sig() -> str:
     """Deterministic signature of HARD_REGIME for cache keys/sidecars."""
     return "_".join(f"{k}={HARD_REGIME[k]}" for k in sorted(HARD_REGIME))
+
+
+def check_sig_sidecar(path: str, sig: str) -> bool:
+    """True iff `path`'s generator-signature sidecar (`<path>.sig`) holds
+    `sig`, or there is no sidecar (caches written before sidecars existed
+    were made with the current parameters).  The same file and rule as
+    lira_tpu's, so either package reads the other's caches."""
+    side = path + ".sig"
+    if not os.path.exists(side):
+        return True
+    with open(side) as f:
+        return f.read().strip() == sig
+
+
+def write_sig_sidecar(path: str, sig: str) -> None:
+    """Write `<path>.sig` atomically (a temp file, then `os.replace`)."""
+    tmp = path + ".sig.tmp"
+    with open(tmp, "w") as f:
+        f.write(sig + "\n")
+    os.replace(tmp, path + ".sig")
 
 
 @dataclass
@@ -135,7 +160,10 @@ def synthetic_dataset(
             base = base @ proj.T
             query = query @ proj.T
         if ambient_noise > 0.0:
-            base += rng.normal(scale=ambient_noise, size=(n_base, dim)).astype(np.float32)
+            for s in range(0, n_base, _NOISE_CHUNK):
+                e = min(s + _NOISE_CHUNK, n_base)
+                base[s:e] += rng.normal(scale=ambient_noise, size=(e - s, dim)).astype(
+                    np.float32)
             query += rng.normal(scale=ambient_noise, size=(n_query, dim)).astype(np.float32)
     base = np.ascontiguousarray(base, dtype=np.float32)
     query = np.ascontiguousarray(query, dtype=np.float32)

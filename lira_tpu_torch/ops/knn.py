@@ -94,6 +94,19 @@ def exact_knn(
     return torch.cat(out_s).cpu().numpy(), torch.cat(out_i).cpu().numpy()
 
 
+def merge_topk_host(best_s, best_i, sc: np.ndarray, ids: np.ndarray, k: int):
+    """The k smallest of two host (scores, global ids) pairs per row, the
+    earlier pair first among equal scores (a stable sort); `best_s` None
+    takes the new pair as it is.  Ranking scores do not depend on the chunk
+    a row came from, so chunk partials merge to the whole set's top-k."""
+    if best_s is None:
+        return sc, ids
+    cs = np.concatenate([best_s, sc], axis=1)
+    ci = np.concatenate([best_i, ids], axis=1)
+    sel = np.argsort(cs, axis=1, kind="stable")[:, :k]
+    return np.take_along_axis(cs, sel, axis=1), np.take_along_axis(ci, sel, axis=1)
+
+
 def exact_knn_stream(
     base: np.ndarray,
     query,
@@ -120,15 +133,7 @@ def exact_knn_stream(
     for s in range(0, n_b, base_chunk):
         e = min(s + base_chunk, n_b)
         sc, ids = exact_knn(base[s:e], q_dev, min(k, e - s), metric=metric, device=dev, **kw)
-        ids = ids.astype(np.int64) + s
-        if best_s is None:
-            best_s, best_i = sc, ids
-        else:
-            cs = np.concatenate([best_s, sc], axis=1)
-            ci = np.concatenate([best_i, ids], axis=1)
-            sel = np.argsort(cs, axis=1, kind="stable")[:, :k]
-            best_s = np.take_along_axis(cs, sel, axis=1)
-            best_i = np.take_along_axis(ci, sel, axis=1)
+        best_s, best_i = merge_topk_host(best_s, best_i, sc, ids.astype(np.int64) + s, k)
         if verbose:
             print(f"  kNN-stream: {e:,}/{n_b:,} rows", flush=True)
     if best_s.shape[1] < k:  # n_b < k: pad to the exact_knn k-clamp contract

@@ -339,6 +339,7 @@ def run_largescale(
         "kmeans": km,
         "scaler": scaler,
         "data_2_bkt": data_2_bkt,
+        "assign_full": assign_full,
         "layout": layout,
         "sweep_parts": sweep_parts,
         "outputs": outputs,

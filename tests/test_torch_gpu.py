@@ -396,3 +396,24 @@ def test_nccl_refuses_ranks_that_share_a_card(cuda):
     n = torch.cuda.device_count() + 1
     with pytest.raises(ValueError, match="NCCL refuses two ranks on one device"):
         launch(n, sharded_kmeans_fit, None, 4, backend="nccl")
+
+
+def test_kernels_on_tables_past_2_31_elements(cuda):
+    """chip_smoke.py's phase_large_tables at the smallest table that passes
+    2^31 elements (16,385 supertiles × 128): K1 in three dtypes, K2 in
+    three modes and K3 on the rows past the mark, each against its plain
+    version within the grids' tolerances (the phase raises otherwise)."""
+    import importlib.util
+    import os
+
+    path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                        "chip_smoke.py")
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    from lira_tpu_torch import true_fp32
+
+    with true_fp32():
+        errs = smoke.phase_large_tables(cuda, n_super=16_385, reps=1)
+    assert set(errs) == {"K1 float32", "K1 bfloat16", "K1 int8", "K2 highest", "K2 default",
+                         "K2 int8", "K3 float32"}

@@ -1,9 +1,9 @@
-"""lira_tpu_torch and chip_smoke.py import neither jax nor lira_tpu: checked
-statically (every import statement) and at run time (tiny CPU searches on
-every scan path, capacity mode and the IVF prober, a self-kNN and a
-training epoch in a fresh interpreter leave no jax module loaded; the
-sharded path's spawned ranks run with `jax` and `lira_tpu` made
-unimportable, so any import of either fails the run)."""
+"""lira_tpu_torch, chip_smoke.py and scripts/torch_*.py import neither jax
+nor lira_tpu: checked statically (every import statement) and at run time
+(tiny CPU searches on every scan path, capacity mode and the IVF prober,
+a self-kNN and a training epoch in a fresh interpreter leave no jax
+module loaded; the sharded path's spawned ranks run with `jax` and
+`lira_tpu` made unimportable, so any import of either fails the run)."""
 
 import ast
 import os
@@ -21,7 +21,8 @@ def _forbidden(name: str) -> bool:
 
 
 def test_no_jax_or_lira_tpu_imports_in_source():
-    files = sorted((ROOT / "lira_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = (sorted((ROOT / "lira_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+             + sorted((ROOT / "scripts").glob("torch_*.py")))
     assert len(files) > 10
     bad = []
     for f in files:
