@@ -38,8 +38,8 @@ Layer map (every module of lira_tpu is ported; `python -m lira_tpu_torch
     csrc/       hand-written CUDA kernels (K1, K2, K3), built with nvcc at
                 first use
     native/     the host runtime (CSR build, tile lists, xvecs parsers),
-                built with g++ at first use; profiling.py: stage timers and
-                torch.profiler traces
+                built with g++ at first use; profiling.py: spans and
+                counters (free unless a torch.profiler records), traces
 
 Entry points run on `cuda` unless the caller passes `device="cpu"`.
 """

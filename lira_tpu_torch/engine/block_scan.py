@@ -33,16 +33,20 @@ copied straight to the host instead of `_wire_pack`'s one-transfer
 packing, and pinned buffers with asynchronous copies instead of the
 stream's upload thread.
 
-Phase profiling, as in lira_tpu: `_scan_all(screen_only=True)` stops after
-the group selection, and LIRA_BLOCKED_TIMING=1 prints the wall time of each
-phase of `blocked_search` and `blocked_search_stream`, the device
-synchronised at each mark (CUDA runs asynchronously).
+Phase profiling: `_scan_all(screen_only=True)` stops after the group
+selection, and under a recording torch.profiler (`profiling.device_trace`)
+the spans of `profiling.span` name each phase without synchronising:
+`probe` (upload, probe launch, the counts' copy), `probe_wait` (the host
+waiting for a batch's union mask), `unions` (`build_block_unions` and its
+uploads), `scan` (the launch of `_scan_all` and of its result's copy;
+inside it `select`, each block's masked group selection, and `rescore`,
+its exact rescore) and `collect` (waiting for and unpacking results).
+`probe` and `unions` also add their host seconds to the counters
+`probe.host_s` and `unions.host_s`, and the counter `screen.pairs` sums
+the (query, row) pairs K1 screens.
 """
 
 from __future__ import annotations
-
-import os
-import time
 
 import numpy as np
 import torch
@@ -51,6 +55,7 @@ import torch.nn.functional as F
 from .. import true_fp32
 from ..ops.distance import l2_to_centroids
 from ..ops.topk import top_k
+from ..profiling import count, span
 from .screen import S_TILES, screen_norms, union_groupmin
 
 _BIG = 3e38
@@ -329,32 +334,37 @@ def _screen_rescore(
             e = min(s + rows_per_call, n_blocks)
             gmin_c = screen_chunk(supers[s:e], ulen[s:e], s, e)
             for b in range(s, e):
-                vals, ggrp = select_slice(gmin_c[b - s], block_penalty(probed_p[b]),
-                                          tb[b], supers[b], 0)
-                neg_b, ids_b = rescore(q_blocks[b], vals, ggrp)
+                with span("select"):
+                    vals, ggrp = select_slice(gmin_c[b - s], block_penalty(probed_p[b]),
+                                              tb[b], supers[b], 0)
+                with span("rescore"):
+                    neg_b, ids_b = rescore(q_blocks[b], vals, ggrp)
                 neg_parts.append(neg_b)
                 ids_parts.append(ids_b)
             del gmin_c  # this chunk's screen output dies before the next screen
     else:
         for b in range(n_blocks):
-            pen_b = block_penalty(probed_p[b])
-            carry_v = torch.full((qb, kg_eff), -torch.inf, device=dev)
-            carry_g = torch.zeros((qb, kg_eff), dtype=torch.int64, device=dev)
+            with span("select"):
+                pen_b = block_penalty(probed_p[b])
+                carry_v = torch.full((qb, kg_eff), -torch.inf, device=dev)
+                carry_g = torch.zeros((qb, kg_eff), dtype=torch.int64, device=dev)
             for u0 in range(0, U, u_chunk):
                 u1 = min(u0 + u_chunk, U)
                 # live slots of this U-slice: the block's true length clipped
                 # into [u0, u1), so K1's skip stays per-slice exact
                 ulen_c = torch.clamp(ulen[b : b + 1] - u0, 0, u1 - u0)
                 gmin_c = screen_chunk(supers[b : b + 1, u0:u1], ulen_c, b, b + 1)[0]
-                vals_c, ggrp_c = select_slice(
-                    gmin_c, pen_b, tb[b, u0 * SG : u1 * SG], supers[b], u0
-                )
-                del gmin_c
-                mv = torch.cat([carry_v, vals_c], dim=1)
-                mg = torch.cat([carry_g, ggrp_c], dim=1)
-                carry_v, isel = top_k(mv, kg_eff)
-                carry_g = torch.gather(mg, 1, isel)
-            neg_b, ids_b = rescore(q_blocks[b], carry_v, carry_g)
+                with span("select"):
+                    vals_c, ggrp_c = select_slice(
+                        gmin_c, pen_b, tb[b, u0 * SG : u1 * SG], supers[b], u0
+                    )
+                    del gmin_c
+                    mv = torch.cat([carry_v, vals_c], dim=1)
+                    mg = torch.cat([carry_g, ggrp_c], dim=1)
+                    carry_v, isel = top_k(mv, kg_eff)
+                    carry_g = torch.gather(mg, 1, isel)
+            with span("rescore"):
+                neg_b, ids_b = rescore(q_blocks[b], carry_v, carry_g)
             neg_parts.append(neg_b)
             ids_parts.append(ids_b)
     return torch.cat(neg_parts), torch.cat(ids_parts), k_loc
@@ -659,31 +669,6 @@ def _wait(handle) -> list[np.ndarray]:
     return [t.numpy() for t in host]
 
 
-class _Laps:
-    """Phase wall times of one blocked call when LIRA_BLOCKED_TIMING=1
-    (else every method is a no-op).  Each mark synchronises the device
-    first: CUDA runs asynchronously, so an unsynchronised clock would time
-    the enqueue, not the phase."""
-
-    def __init__(self, dev: torch.device):
-        self.on = os.environ.get("LIRA_BLOCKED_TIMING") == "1"
-        self.dev = dev
-        self.parts: list[tuple[str, float]] = []
-        self.t = time.perf_counter()
-
-    def mark(self, name: str) -> None:
-        if not self.on:
-            return
-        if self.dev.type == "cuda":
-            torch.cuda.synchronize(self.dev)
-        now = time.perf_counter()
-        self.parts.append((name, now - self.t))
-        self.t = now
-
-    def line(self) -> str:
-        return ", ".join(f"{name} {1e3 * s:.0f}ms" for name, s in self.parts)
-
-
 def _probe_batch(state: BlockScanState, engine, queries: np.ndarray, threshold: float,
                  block_q: int, use_cache: bool = False) -> dict:
     """Upload one batch and launch its probe (asynchronous on the card).
@@ -739,23 +724,27 @@ def _probe_batch(state: BlockScanState, engine, queries: np.ndarray, threshold: 
                 ndis=ndis, B=B, qb=qb)
 
 
-def _dispatch_scan(state, engine, h, union, fetch_k, k, kg, sel_rows, laps=None):
-    """Host union build + launch of one batch's scan (asynchronous)."""
-    supers, tb, ulen = build_block_unions(
-        union, engine.tile_start, engine.tiles_per_bucket, state.tile_bucket
-    )
-    if laps is not None:
-        laps.mark(f"host_unions U={supers.shape}")
+def _dispatch_scan(state, engine, h, union, fetch_k, k, kg, sel_rows, wire):
+    """Host union build, then the launch of one batch's scan and of its
+    results' copy to the host (asynchronous): a handle for _wait."""
     dev = state.device
-    sub = _round2_sub(kg, sel_rows, h["q"].shape[1], h["qb"])
-    return _scan_all(
-        h["q"], h["probed"], h["perm"], torch.as_tensor(supers, device=dev),
-        torch.as_tensor(tb, device=dev), torch.as_tensor(ulen, device=dev),
-        state.corpus_flat, state.bsq, state.corpus_flat_f32, state.tiles_ids,
-        state.tile_pad_count, metric=engine.metric, kg=kg, fetch_k=fetch_k, k=k,
-        qb=h["qb"], sub=sub, sel_rows=sel_rows, dim_scale=state.dim_scale,
-        screen_sq=state.screen_sq,
-    )
+    with span("unions", timed=True):
+        supers, tb, ulen = build_block_unions(
+            union, engine.tile_start, engine.tiles_per_bucket, state.tile_bucket
+        )
+        supers_d, tb_d, ulen_d = (torch.as_tensor(a, device=dev) for a in (supers, tb, ulen))
+    # every query of a block against every row of its union's supertiles
+    count("screen.pairs", h["qb"] * int(ulen.sum()) * S_TILES * 128)
+    with span("scan"):
+        sub = _round2_sub(kg, sel_rows, h["q"].shape[1], h["qb"])
+        scores, ids = _scan_all(
+            h["q"], h["probed"], h["perm"], supers_d, tb_d, ulen_d,
+            state.corpus_flat, state.bsq, state.corpus_flat_f32, state.tiles_ids,
+            state.tile_pad_count, metric=engine.metric, kg=kg, fetch_k=fetch_k, k=k,
+            qb=h["qb"], sub=sub, sel_rows=sel_rows, dim_scale=state.dim_scale,
+            screen_sq=state.screen_sq,
+        )
+        return _to_host_async([_wire(scores, wire), ids])
 
 
 def _wire(scores: torch.Tensor, wire: str) -> torch.Tensor:
@@ -783,19 +772,16 @@ def blocked_search(
     """(scores (B,k), ids (B,k), nprobe, ndis) as host arrays, deduplicated
     to k distinct neighbours."""
     margin = _resolve_margin(margin, state.scan_dtype, sel_rows)
-    laps = _Laps(state.device)
-    h = _probe_batch(state, engine, queries, threshold, block_q, use_cache=True)
-    laps.mark("q_upload+probe")
-    B = h["B"]
-    union, nprobe, ndis = _wait(_to_host_async([h["union"], h["nprobe"], h["ndis"]]))
-    laps.mark("union_sync")
-    scores, ids = _dispatch_scan(state, engine, h, union, fetch_k, k,
-                                 fetch_k + margin, sel_rows, laps)
-    s_np, i_np = _wait(_to_host_async([_wire(scores, wire), ids]))
-    laps.mark("scan+result_sync")
-    if laps.on:
-        print(f"[blocked_search B={B}] {laps.line()}", flush=True)
-    return s_np[:B], i_np[:B], nprobe[:B].astype(np.int64), ndis[:B].astype(np.int64)
+    with span("probe", timed=True):
+        h = _probe_batch(state, engine, queries, threshold, block_q, use_cache=True)
+        counts = _to_host_async([h["union"], h["nprobe"], h["ndis"]])
+    with span("probe_wait"):
+        union, nprobe, ndis = _wait(counts)
+    res = _dispatch_scan(state, engine, h, union, fetch_k, k, fetch_k + margin, sel_rows, wire)
+    with span("collect"):
+        B = h["B"]
+        s_np, i_np = _wait(res)
+        return s_np[:B], i_np[:B], nprobe[:B].astype(np.int64), ndis[:B].astype(np.int64)
 
 
 def blocked_search_stream(
@@ -825,9 +811,10 @@ def blocked_search_stream(
     starts = list(range(0, len(queries), batch_size))
 
     def probe(s):
-        h = _probe_batch(state, engine, queries[s : s + batch_size], threshold, block_q)
-        h["counts"] = _to_host_async([h["union"], h["nprobe"], h["ndis"]])
-        return h
+        with span("probe", timed=True):
+            h = _probe_batch(state, engine, queries[s : s + batch_size], threshold, block_q)
+            h["counts"] = _to_host_async([h["union"], h["nprobe"], h["ndis"]])
+            return h
 
     out_scores, out_ids, out_np, out_nd = [], [], [], []
 
@@ -840,36 +827,23 @@ def blocked_search_stream(
         out_np.append(nprobe[:B].astype(np.int64))
         out_nd.append(ndis[:B].astype(np.int64))
 
-    laps = _Laps(state.device)
-
-    def mark(label):
-        if laps.on:
-            laps.mark(label)
-            print(f"[stream {label}] {1e3 * laps.parts[-1][1]:.0f}ms", flush=True)
-
     prev = None
     h_next = probe(starts[0])
-    mark("probe b0")
     for i in range(len(starts)):
         h = h_next
-        if i + 1 < len(starts):
-            h_next = probe(starts[i + 1])
-            mark(f"probe b{i + 1}")
-        else:
-            h_next = None
-        union = _wait(h["counts"])[0]
-        scores, ids = _dispatch_scan(state, engine, h, union, fetch_k, k, kg, sel_rows)
-        res = _to_host_async([_wire(scores, wire), ids])
-        mark(f"union_sync+scan b{i}")
+        h_next = probe(starts[i + 1]) if i + 1 < len(starts) else None
+        with span("probe_wait"):
+            union = _wait(h["counts"])[0]
+        res = _dispatch_scan(state, engine, h, union, fetch_k, k, kg, sel_rows, wire)
         if prev is not None:
-            collect(*prev)
-            mark(f"collect b{i - 1}")
+            with span("collect"):
+                collect(*prev)
         prev = (h, res)
-    collect(*prev)
-    mark(f"collect b{len(starts) - 1}")
-    return (
-        np.concatenate(out_scores),
-        np.concatenate(out_ids),
-        np.concatenate(out_np),
-        np.concatenate(out_nd),
-    )
+    with span("collect"):
+        collect(*prev)
+        return (
+            np.concatenate(out_scores),
+            np.concatenate(out_ids),
+            np.concatenate(out_np),
+            np.concatenate(out_nd),
+        )

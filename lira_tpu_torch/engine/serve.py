@@ -17,6 +17,10 @@ lira_tpu/engine/serve.py).
          the card); fetches wider than 128 go to the 'xla' scan
      The per-query paths over-fetch in bf16 and re-rank on the host in f32.
   5. ndis accounting uses true (unpadded) bucket sizes
+
+`search` and `search_stream` are the root spans of `profiling.span`, one a
+call; the blocked path's phases are spans of engine/block_scan.py, the
+per-query path's `probe`, `tiles`, `scan`, `collect`, `rerank` and `dedup`.
 """
 
 from __future__ import annotations
@@ -34,6 +38,7 @@ from ..models.probing_mlp import ProbingMLP, params_from_jax
 from ..ops.distance import l2_to_centroids, row_sqnorms
 from ..ops.topk import top_k
 from ..partition.assign import BucketLayout
+from ..profiling import span
 from .screen import SEL_ROWS
 
 _SCAN_DTYPES = {
@@ -422,14 +427,15 @@ class QueryEngine:
     def search(self, queries: np.ndarray, threshold: float, k: int) -> SearchResult:
         """Probe + selective exact scan + top-k for one query batch."""
         t0 = time.perf_counter()
-        queries = np.asarray(queries, np.float32)
-        if len(queries) == 0:
-            return self._empty_result(k, t0)
-        if self.scan_impl == "blocked":
-            ids, scores, nprobe, ndis = self._blocked(queries, threshold, k, False, 0)
-            return SearchResult(ids=ids, scores=scores, nprobe=nprobe, ndis=ndis,
-                                elapsed=time.perf_counter() - t0)
-        return self._search_unblocked(queries, threshold, k, t0)
+        with span("search"):
+            queries = np.asarray(queries, np.float32)
+            if len(queries) == 0:
+                return self._empty_result(k, t0)
+            if self.scan_impl == "blocked":
+                ids, scores, nprobe, ndis = self._blocked(queries, threshold, k, False, 0)
+                return SearchResult(ids=ids, scores=scores, nprobe=nprobe, ndis=ndis,
+                                    elapsed=time.perf_counter() - t0)
+            return self._search_unblocked(queries, threshold, k, t0)
 
     def search_stream(self, queries: np.ndarray, threshold: float, k: int,
                       batch_size: int = 65536) -> SearchResult:
@@ -438,24 +444,26 @@ class QueryEngine:
         Per-query paths: sequential per-batch `search`.  Results equal
         per-batch `search` calls concatenated."""
         t0 = time.perf_counter()
-        queries = np.asarray(queries, np.float32)
-        if len(queries) == 0:
-            return self._empty_result(k, t0)
-        if self.scan_impl == "blocked":
-            ids, scores, nprobe, ndis = self._blocked(queries, threshold, k, True, batch_size)
-            return SearchResult(ids=ids, scores=scores, nprobe=nprobe, ndis=ndis,
-                                elapsed=time.perf_counter() - t0)
-        parts = [
-            self.search(queries[s : s + batch_size], threshold, k)
-            for s in range(0, len(queries), batch_size)
-        ]
-        return SearchResult(
-            ids=np.concatenate([p.ids for p in parts]),
-            scores=np.concatenate([p.scores for p in parts]),
-            nprobe=np.concatenate([p.nprobe for p in parts]),
-            ndis=np.concatenate([p.ndis for p in parts]),
-            elapsed=time.perf_counter() - t0,
-        )
+        with span("search_stream"):
+            queries = np.asarray(queries, np.float32)
+            if len(queries) == 0:
+                return self._empty_result(k, t0)
+            if self.scan_impl == "blocked":
+                ids, scores, nprobe, ndis = self._blocked(queries, threshold, k, True,
+                                                          batch_size)
+                return SearchResult(ids=ids, scores=scores, nprobe=nprobe, ndis=ndis,
+                                    elapsed=time.perf_counter() - t0)
+            parts = [
+                self.search(queries[s : s + batch_size], threshold, k)
+                for s in range(0, len(queries), batch_size)
+            ]
+            return SearchResult(
+                ids=np.concatenate([p.ids for p in parts]),
+                scores=np.concatenate([p.scores for p in parts]),
+                nprobe=np.concatenate([p.nprobe for p in parts]),
+                ndis=np.concatenate([p.ndis for p in parts]),
+                elapsed=time.perf_counter() - t0,
+            )
 
     def _empty_result(self, k: int, t0: float) -> SearchResult:
         return SearchResult(
@@ -465,8 +473,10 @@ class QueryEngine:
         )
 
     def _search_unblocked(self, queries: np.ndarray, threshold: float, k: int, t0: float):
-        probed = self._select_probed(queries, threshold)
-        tiles = self._probe_tiles(probed)
+        with span("probe"):
+            probed = self._select_probed(queries, threshold)
+        with span("tiles"):
+            tiles = self._probe_tiles(probed)
         bf16 = self.scan_dtype == torch.bfloat16
         # scan with n_mul × k slots so replicas can be deduplicated to k
         # distinct; bf16 mode over-fetches extra slots for the f32 re-rank
@@ -477,31 +487,35 @@ class QueryEngine:
         # block's result to the host; here the blocks write into one device
         # buffer, fetched once — the same values, one transfer per batch.
         B = len(queries)
-        counts = (tiles >= 0).sum(axis=1)
-        block = min(2048, max(8, 1 << int(np.ceil(np.log2(max(B, 1))))))
-        order = np.argsort(counts, kind="stable")
-        dev = self.device
-        q_dev = torch.as_tensor(queries, device=dev)
-        ids_dev = torch.empty((B, fetch_k), dtype=torch.int32, device=dev)
-        scores_dev = torch.empty((B, fetch_k), dtype=torch.float32, device=dev)
-        for s in range(0, B, block):
-            sel = order[s : s + block]
-            n = len(sel)
-            t_val = max(1, 1 << int(np.ceil(np.log2(max(int(counts[sel].max()), 1)))))
-            full = sel
-            if n < block:  # pad the tail block to the fixed size
-                full = np.concatenate([sel, np.zeros(block - n, dtype=sel.dtype)])
-            tiles_blk = tiles[full, :t_val]  # fancy indexing: a copy
-            tiles_blk[n:] = -1
-            sc, gid = self._scan(q_dev[torch.as_tensor(full, device=dev)], tiles_blk, fetch_k)
-            sel_dev = torch.as_tensor(sel, device=dev)
-            ids_dev[sel_dev] = gid[:n].to(torch.int32)
-            scores_dev[sel_dev] = sc[:n]
-        ids, scores = ids_dev.cpu().numpy(), scores_dev.cpu().numpy()
+        with span("scan"):
+            counts = (tiles >= 0).sum(axis=1)
+            block = min(2048, max(8, 1 << int(np.ceil(np.log2(max(B, 1))))))
+            order = np.argsort(counts, kind="stable")
+            dev = self.device
+            q_dev = torch.as_tensor(queries, device=dev)
+            ids_dev = torch.empty((B, fetch_k), dtype=torch.int32, device=dev)
+            scores_dev = torch.empty((B, fetch_k), dtype=torch.float32, device=dev)
+            for s in range(0, B, block):
+                sel = order[s : s + block]
+                n = len(sel)
+                t_val = max(1, 1 << int(np.ceil(np.log2(max(int(counts[sel].max()), 1)))))
+                full = sel
+                if n < block:  # pad the tail block to the fixed size
+                    full = np.concatenate([sel, np.zeros(block - n, dtype=sel.dtype)])
+                tiles_blk = tiles[full, :t_val]  # fancy indexing: a copy
+                tiles_blk[n:] = -1
+                sc, gid = self._scan(q_dev[torch.as_tensor(full, device=dev)], tiles_blk,
+                                     fetch_k)
+                sel_dev = torch.as_tensor(sel, device=dev)
+                ids_dev[sel_dev] = gid[:n].to(torch.int32)
+                scores_dev[sel_dev] = sc[:n]
+        with span("collect"):
+            ids, scores = ids_dev.cpu().numpy(), scores_dev.cpu().numpy()
 
         if bf16:
             ids, scores = self._rerank_f32(queries, ids, scores)
-        ids, scores = _dedup_topk(ids, scores, k)
+        with span("dedup"):
+            ids, scores = _dedup_topk(ids, scores, k)
         return SearchResult(
             ids=ids,
             scores=scores,
@@ -511,11 +525,12 @@ class QueryEngine:
         )
 
     def _rerank_f32(self, queries: np.ndarray, ids: np.ndarray, scores: np.ndarray):
-        if self.metric != "inner_product" and self._x_sq is None:
-            # one O(n·d) pass, reused by every later re-rank call
-            self._x_sq = np.einsum("nd,nd->n", self._x_d, self._x_d,
-                                   optimize=True).astype(np.float32)
-        return rerank_exact_host(self._x_d, self.metric, queries, ids, x_sq=self._x_sq)
+        with span("rerank"):
+            if self.metric != "inner_product" and self._x_sq is None:
+                # one O(n·d) pass, reused by every later re-rank call
+                self._x_sq = np.einsum("nd,nd->n", self._x_d, self._x_d,
+                                       optimize=True).astype(np.float32)
+            return rerank_exact_host(self._x_d, self.metric, queries, ids, x_sq=self._x_sq)
 
     def recall_against(self, result_ids: np.ndarray, gt_ids: np.ndarray, k: int) -> np.ndarray:
         """Per-query recall@k vs ground truth; -1 padding in gt never counts."""

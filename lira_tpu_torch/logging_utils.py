@@ -2,7 +2,8 @@
 (own copy of lira_tpu/logging_utils.py)
 
 Capability parity with the reference's fprint dual logger (utils.py:217-220)
-and PrettyTable epoch tables (LIRA_smallscale.py:126-129), dependency-free.
+and PrettyTable epoch tables (LIRA_smallscale.py:126-129), dependency-free
+but for the stage timers' spans (profiling.py).
 """
 
 from __future__ import annotations
@@ -10,6 +11,8 @@ from __future__ import annotations
 import time
 from contextlib import contextmanager
 from typing import IO, Iterable, Sequence
+
+from .profiling import span
 
 
 def fprint(message, file: IO | None = None) -> None:
@@ -45,11 +48,13 @@ def ascii_table(headers: Sequence[str], rows: Iterable[Sequence], float_fmt: str
 
 @contextmanager
 def stage_timer(name: str, file: IO | None = None):
-    """Wall-clock bracket around a pipeline stage, logged via fprint.
+    """Wall-clock bracket around a pipeline stage, logged via fprint, and a
+    `profiling.span` of the stage's name (so the stage shows in a trace).
     Logs on exceptions too — the failing stage's elapsed time is exactly
     the line needed to diagnose where a long run died."""
     start = time.perf_counter()
     try:
-        yield
+        with span(name):
+            yield
     finally:
         fprint(f">> {name} time: {time.perf_counter() - start:.4f}s", file)

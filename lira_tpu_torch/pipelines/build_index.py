@@ -71,8 +71,9 @@ def build_index(
     state = make_train_state(cfg.seed, n_bkt, dim, lr=cfg.lr, device=dev)
     with stage_timer("training", fw):
         for epoch in range(cfg.n_epoch):
-            state, loss = train_epoch(state, dist_d, train_vec, train_tgt,
-                                      batch_size=cfg.batch_size)
+            with stage_timer("training epoch", fw):
+                state, loss = train_epoch(state, dist_d, train_vec, train_tgt,
+                                          batch_size=cfg.batch_size)
             fprint(f"Epoch {epoch}, Train Loss: {loss:.5f}", fw)
 
     if cfg.duplicate_type == "model":

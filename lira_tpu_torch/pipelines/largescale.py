@@ -261,8 +261,9 @@ def run_largescale(
 
     outputs = eval_epoch(start_epoch - 1)
     for epoch in range(start_epoch, cfg.n_epoch):
-        state, _ = train_epoch(state, dist_sub, x_sub_dev, labels_sub_dev,
-                               batch_size=cfg.batch_size)
+        with stage_timer("training epoch", fw):
+            state, _ = train_epoch(state, dist_sub, x_sub_dev, labels_sub_dev,
+                                   batch_size=cfg.batch_size)
         if ckpt is not None:
             save_train_state(state, ckpt.path("train_state.npz"), step=epoch + 1)
         outputs = eval_epoch(epoch)

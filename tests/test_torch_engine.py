@@ -364,26 +364,99 @@ def test_screen_only_matches_lira_tpu(index):
     assert not np.array_equal(r.ids, id_t)
 
 
-def test_blocked_timing_prints_each_phase(index, monkeypatch, capsys):
-    """LIRA_BLOCKED_TIMING=1: blocked_search prints one line of phase
-    times, the stream one line a phase; the results do not change."""
-    _, e_t = _engines(index, block_q=8)
+def _traced(call, tmp_path, name):
+    """call() under `profiling.device_trace` on the CPU, counters reset
+    first: (its result, the trace's span events sorted by start)."""
+    import json
+
+    from lira_tpu_torch import profiling
+
+    profiling.reset_counters()
+    with profiling.device_trace(str(tmp_path / name), device="cpu"):
+        out = call()
+    with open(tmp_path / name / "trace.json") as f:
+        evs = [e for e in json.load(f)["traceEvents"] if e.get("cat") == "user_annotation"]
+    return out, sorted(evs, key=lambda e: (e["ts"], -e["dur"]))
+
+
+def _inside(e, outer):
+    return outer["ts"] <= e["ts"] and e["ts"] + e["dur"] <= outer["ts"] + outer["dur"]
+
+
+@pytest.mark.parametrize("root", ["search", "search_stream"])
+def test_blocked_spans_nest_under_their_root(index, tmp_path, root):
+    """Under a profiler on the CPU the blocked engine's call is one root
+    span holding every phase's; `select` and `rescore` lie inside `scan`;
+    `probe` and `unions` add their host seconds to counters; the ids equal
+    an untraced call's."""
+    from lira_tpu_torch import profiling
+
+    _, e_t = _engines(index, block_q=8, scan_dtype="int8")
     x_q = index["x_q"]
-    base = e_t.search(x_q, 0.0, K)
-    base_s = e_t.search_stream(x_q, 0.0, K, batch_size=16)
-    monkeypatch.setenv("LIRA_BLOCKED_TIMING", "1")
-    capsys.readouterr()
-    r = e_t.search(x_q, 0.0, K)
-    out = capsys.readouterr().out
-    assert out.startswith(f"[blocked_search B={len(x_q)}] q_upload+probe ")
-    for phase in ("union_sync", "host_unions U=", "scan+result_sync"):
-        assert phase in out
-    r_s = e_t.search_stream(x_q, 0.0, K, batch_size=16)
-    lines = capsys.readouterr().out.splitlines()
-    assert lines[0].startswith("[stream probe b0] ") and lines[-1].startswith("[stream collect b2]")
-    assert sum("union_sync+scan" in ln for ln in lines) == 3
+    kw = dict(batch_size=16) if root == "search_stream" else {}
+    base = getattr(e_t, root)(x_q, 0.0, K, **kw)
+    r, evs = _traced(lambda: getattr(e_t, root)(x_q, 0.0, K, **kw), tmp_path, root)
     np.testing.assert_array_equal(r.ids, base.ids)
-    np.testing.assert_array_equal(r_s.ids, base_s.ids)
-    monkeypatch.delenv("LIRA_BLOCKED_TIMING")
-    e_t.search(x_q, 0.0, K)
-    assert capsys.readouterr().out == ""
+    roots = [e for e in evs if e["name"] == root]
+    assert len(roots) == 1
+    leaves = ("probe", "probe_wait", "unions", "scan", "select", "rescore", "collect")
+    assert {e["name"] for e in evs} == {root, *leaves}
+    assert all(_inside(e, roots[0]) for e in evs)
+    n_batches = 3 if root == "search_stream" else 1
+    for name in ("probe", "probe_wait", "unions", "scan"):
+        assert sum(e["name"] == name for e in evs) == n_batches, name
+    scans = [e for e in evs if e["name"] == "scan"]
+    for e in evs:
+        if e["name"] in ("select", "rescore"):
+            assert any(_inside(e, s) for s in scans)
+    assert set(profiling.counters()) == {"screen.pairs", "probe.host_s", "unions.host_s"}
+    assert all(v > 0 for v in profiling.counters().values())
+
+
+def test_per_query_spans_nest_under_their_root(index, tmp_path):
+    """The per-query path (`_search_unblocked`, here the xla scan in bf16,
+    which re-ranks on the host): probe, tiles, scan, collect, rerank and
+    dedup inside `search`."""
+    e_t = TorchEngine(index["x_d"], t_layout(index["d2b"], index["n_bkt"], tile=128),
+                      index["centroids"], index["scaler"],
+                      params_from_jax(index["params_np"]), n_mul=index["n_mul"],
+                      scan_impl="xla", scan_dtype="bfloat16", device="cpu")
+    base = e_t.search(index["x_q"], 0.0, K)
+    r, evs = _traced(lambda: e_t.search(index["x_q"], 0.0, K), tmp_path, "unblocked")
+    np.testing.assert_array_equal(r.ids, base.ids)
+    assert [e["name"] for e in evs] == ["search", "probe", "tiles", "scan", "collect",
+                                        "rerank", "dedup"]
+    assert all(_inside(e, evs[0]) for e in evs)
+
+
+def test_spans_and_counts_are_free_without_a_profiler():
+    """No profiler recording: `span` hands back one shared no-op context,
+    and neither a span nor `count` records anything."""
+    from lira_tpu_torch import profiling
+
+    profiling.reset_counters()
+    a, b = profiling.span("x"), profiling.span("y", timed=True)
+    assert a is b
+    with a:
+        profiling.count("screen.pairs", 5)
+    assert profiling.counters() == {}
+
+
+@pytest.mark.parametrize("batch_size", [16, 64])
+def test_screen_pairs_counts_each_block_union(index, tmp_path, batch_size):
+    """`screen.pairs` is qb × Σ ulen × S_TILES × 128 summed over a call's
+    batches, recomputed here from `build_block_unions` on each batch's
+    union mask."""
+    from lira_tpu_torch import profiling
+
+    _, e_t = _engines(index, block_q=8, scan_dtype="int8")
+    x_q, thr = index["x_q"], _thresholds(e_t.probe(index["x_q"]))[1]
+    st = e_t._block_state
+    want = 0
+    for s in range(0, len(x_q), batch_size):
+        h = tbs._probe_batch(st, e_t, x_q[s : s + batch_size], thr, 8)
+        _, _, ulen = tbs.build_block_unions(h["union"].numpy(), e_t.tile_start,
+                                            e_t.tiles_per_bucket, st.tile_bucket)
+        want += h["qb"] * int(ulen.sum()) * tbs.S_TILES * 128
+    _traced(lambda: e_t.search_stream(x_q, thr, K, batch_size=batch_size), tmp_path, "pairs")
+    assert profiling.counters()["screen.pairs"] == want > 0

@@ -5,8 +5,8 @@ Exact: corpora (byte-identical), xvecs files, bucket layouts, the tour
 rank, the top-k tie rule, grouped_topk's values and (without ties) its
 indices, and K-Means assignments.  allclose (f32 sums in another order):
 distances rtol 1e-5, centroids rtol 1e-4, scaler moments rtol 1e-5, MLP
-outputs atol 1e-6.  Also profiling's StageStats and device_trace on the
-CPU.
+outputs atol 1e-6.  Also profiling's device_trace and the stage timers'
+spans on the CPU, and scripts/torch_trace_spans.py on a made trace.
 """
 
 import os
@@ -24,7 +24,6 @@ from lira_tpu.models.probing_mlp import forward as j_forward
 from lira_tpu.models.probing_mlp import init_params
 from lira_tpu.ops import distance as jdist
 from lira_tpu.ops.topk import grouped_topk as j_grouped_topk
-from lira_tpu.profiling import StageStats as JStageStats
 from lira_tpu.partition import assign as jassign
 from lira_tpu.partition import kmeans as jkm
 from lira_tpu.partition.order import centroid_tour_rank as j_rank
@@ -34,7 +33,8 @@ from lira_tpu_torch.labels.scaler import scaled_centroid_distances as t_scaled
 from lira_tpu_torch.models.probing_mlp import ProbingMLP, params_from_jax, params_to_jax
 from lira_tpu_torch.ops import distance as tdist
 from lira_tpu_torch.ops.topk import grouped_topk, top_k
-from lira_tpu_torch.profiling import StageStats, device_trace
+from lira_tpu_torch.logging_utils import stage_timer
+from lira_tpu_torch.profiling import device_trace
 from lira_tpu_torch.partition import assign as tassign
 from lira_tpu_torch.partition import kmeans as tkm
 from lira_tpu_torch.partition.order import centroid_tour_rank as t_rank
@@ -129,18 +129,68 @@ def test_grouped_topk_with_ties_points_at_equal_values():
     assert all(len(set(r)) == 20 for r in i_t.numpy())
 
 
-def test_stage_stats_as_lira_tpu():
-    t, j = StageStats(), JStageStats()
-    for st in (t, j):
-        with st.stage("a"):
-            pass
-        with pytest.raises(ValueError), st.stage("b"):
-            raise ValueError  # a failing stage is recorded too
-        with st.stage("a"):
-            pass
-    assert set(t.times) == set(j.times) == {"a", "b"}
-    assert [ln.split(":")[0] for ln in t.report().splitlines()] == sorted(
-        t.times, key=lambda n: -t.times[n])
+def test_stage_timer_prints_and_opens_a_span(tmp_path, capsys):
+    """stage_timer prints its `>> <stage> time:` line, on a failing stage
+    too, and under a profiler opens a span of the stage's name."""
+    import io
+    import json
+
+    log = io.StringIO()
+    with device_trace(str(tmp_path / "tr"), device="cpu"):
+        with stage_timer("training", log), stage_timer("training epoch", log):
+            torch.ones(8) + 1
+    with pytest.raises(ValueError), stage_timer("failing", log):
+        raise ValueError
+    lines = log.getvalue().splitlines()
+    assert [ln.split(" time: ")[0] for ln in lines] == [
+        ">> training epoch", ">> training", ">> failing"]
+    assert capsys.readouterr().out.splitlines() == lines
+    with open(tmp_path / "tr" / "trace.json") as f:
+        spans = [e for e in json.load(f)["traceEvents"] if e.get("cat") == "user_annotation"]
+    outer, inner = sorted(spans, key=lambda e: e["ts"])
+    assert (outer["name"], inner["name"]) == ("training", "training epoch")
+    assert outer["ts"] <= inner["ts"] and inner["ts"] + inner["dur"] <= outer["ts"] + outer["dur"]
+
+
+def test_trace_spans_script_splits_a_made_trace():
+    """scripts/torch_trace_spans.py on a made trace: a root span `call`
+    holding `a` and `b`; a kernel launched in `a`, one in `b`, one in the
+    root between them; idle stretches whose middles fall in `a`, in the
+    root, in `b`, and outside every span."""
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parent.parent / "scripts" / "torch_trace_spans.py"
+    spec = importlib.util.spec_from_file_location("torch_trace_spans", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+
+    def ev(cat, name, ts, dur, tid=1, **args):
+        return {"ph": "X", "cat": cat, "name": name, "ts": ts, "dur": dur, "tid": tid,
+                "args": args}
+
+    events = [
+        ev("user_annotation", "call", 0, 100),
+        ev("user_annotation", "a", 10, 30), ev("user_annotation", "b", 60, 30),
+        ev("cuda_runtime", "cudaLaunchKernel", 12, 1, correlation=1),
+        ev("cuda_runtime", "cudaLaunchKernel", 50, 1, correlation=2),
+        ev("cuda_runtime", "cudaLaunchKernel", 61, 1, correlation=3),
+        ev("kernel", "k_a", 26, 19, tid=7, correlation=1),  # busy 26-45
+        ev("kernel", "k_call", 52, 6, tid=7, correlation=2),  # busy 52-58
+        ev("kernel", "k_b", 70, 10, tid=7, correlation=3),  # busy 70-80
+        ev("cpu_op", "aten::x", 100, 40),  # the window runs to 140
+    ]
+    out = mod.summarize(events)
+    sp = out["spans"]
+    assert (out["window_s"], out["busy_s"]) == pytest.approx((140e-6, 35e-6))
+    assert {n: sp[n]["n"] for n in sp if sp[n]["n"]} == {"call": 1, "a": 1, "b": 1}
+    assert [sp[n]["host_self_s"] for n in ("call", "a", "b")] == pytest.approx(
+        [40e-6, 30e-6, 30e-6])
+    assert [sp[n]["device_s"] for n in ("call", "a", "b")] == pytest.approx(
+        [6e-6, 19e-6, 10e-6])
+    # idle 0-26 (middle in a), 45-52 (call), 58-70 (b), 80-140 (no span)
+    assert [sp[n]["idle_s"] for n in ("call", "a", "b", mod.NO_SPAN)] == pytest.approx(
+        [7e-6, 26e-6, 12e-6, 60e-6])
 
 
 def test_device_trace_writes_a_chrome_trace_on_the_cpu(tmp_path):
