@@ -51,7 +51,15 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      `exact_knn` on the card) beside the TPU record, exact neighbour sets on
      64 sampled queries against a numpy oracle over the probed buckets,
      stream == per-batch search, a torch.profiler breakdown of one warm
-     `search`, and K1 at the main path's inputs against its plain version;
+     `search`, K1 at the main path's inputs against its plain version, and
+     the masked group selection there: launched once a block and U-slice
+     by the `search` (counted over the search and the stream), bit for bit
+     equal to its plain version on 8 blocks of that K1 output at the
+     engine's own kg and sel_rows, and on block 0 at the calibration's
+     exhaustive kg; then the selection alone (`phase_group_select`) on a
+     10M-shaped block (524,288 groups x 1,024 queries) and a 1M-shaped
+     one; each timed beside its bytes bound, the plain chain and
+     `torch.topk` over the masked minima;
      then on the same trained index and threshold:
      - the per-query engines, scan_impl "pallas" (K3) and "xla", in f32
        and bf16 on the full 65536-query batch: nprobe/ndis equal to the
@@ -169,6 +177,10 @@ K3_REPLACES = "lira_tpu/engine/pallas_scan.py:33"
 # scalar prefetch, turned tile-major, and the final top-k it takes in XLA
 K3_INVERT_REPLACES = "lira_tpu/engine/pallas_scan.py:209"
 K3_MERGE_REPLACES = "lira_tpu/engine/pallas_scan.py:247"
+# the masked group selection replaces no Pallas kernel: the JAX package
+# selects in XLA (select_slice's masked add and lax.top_k)
+GS_SOURCE = "lira_tpu_torch/csrc/group_select.cu"
+GS_REPLACES = "none: XLA in lira_tpu/engine/block_scan.py:443"
 # the TPU record (BENCH_r05.json; only its hardware-independent columns)
 TPU_RECALL, TPU_NDIS = 0.8370, 7755
 MIN_INT8_RECALL = 0.75  # the trained MLP's floor at the bench's operating point
@@ -1051,19 +1063,25 @@ def phase_k2_tensor_cores(dev, x_d, knn_f32, k, q_tile) -> list:
 
 def k1_main_path_inputs(eng, x_q, thr):
     """K1's inputs exactly as the engine's screen gets them for this
-    65536-query batch (probe, unions, block order, screen dtype)."""
+    65536-query batch (probe, unions, block order, screen dtype), and the
+    selection's: each group's bucket (n_blocks, U·SG) int32 and each
+    block's probed rows (n_blocks, qb, n_bkt)."""
     from lira_tpu_torch.engine import block_scan as bs
 
     st = eng._block_state
     h = bs._probe_batch(st, eng, x_q, thr, eng.block_q)
     union = h["union"].cpu().numpy()
-    supers, _, ulen = bs.build_block_unions(union, eng.tile_start, eng.tiles_per_bucket,
-                                            st.tile_bucket)
+    supers, tb, ulen = bs.build_block_unions(union, eng.tile_start, eng.tiles_per_bucket,
+                                             st.tile_bucket)
     q, t_eff, s2 = bs.screen_queries(h["q"][h["perm"]], st.corpus_flat.dtype,
                                      st.dim_scale, eng.metric)
     dev = st.device
-    return (q.contiguous(), st.corpus_flat, torch.as_tensor(supers, device=dev),
-            torch.as_tensor(ulen, device=dev), h["qb"], t_eff, s2, st.screen_sq)
+    supers = torch.as_tensor(supers, device=dev)
+    tb_g = bs.group_buckets(torch.as_tensor(tb, device=dev), supers, st.tile_pad_count,
+                            eng.block_sel_rows)
+    probed_p = h["probed"][h["perm"]].view(supers.shape[0], h["qb"], -1)
+    return (q.contiguous(), st.corpus_flat, supers, torch.as_tensor(ulen, device=dev),
+            h["qb"], t_eff, s2, st.screen_sq, tb_g, probed_p)
 
 
 def check_oracle(eng, r, idx, thr, k, tag, rng, n_chk=256, n=64):
@@ -1101,7 +1119,9 @@ def phase_serving(dev, idx, batch=65536, n_gt=4096, k=10):
     """The blocked serving path on the trained index, in every screen dtype.
     Returns (kernel records, the run: threshold, ground truth and each
     dtype's result, recall and margin)."""
+    from lira_tpu_torch.engine import block_scan as bs
     from lira_tpu_torch.engine.calibrate import calibrate_block_margin
+    from lira_tpu_torch.engine.group_select import masked_group_topk
     from lira_tpu_torch.engine.screen import union_groupmin
     from lira_tpu_torch.engine.serve import QueryEngine
     from lira_tpu_torch.ops.knn import exact_knn
@@ -1133,13 +1153,21 @@ def phase_serving(dev, idx, batch=65536, n_gt=4096, k=10):
 
         big = np.tile(x_q, (4, 1))
         torch.cuda.reset_peak_memory_stats()
-        union_groupmin.launches = 0
+        union_groupmin.launches = masked_group_topk.launches = 0
         r = eng.search(x_q, thr, k)
+        plan = dict(bs._LAST_CHUNK_PLAN)
+        sel_search = masked_group_topk.launches
         r_s = eng.search_stream(big, thr, k, batch_size=batch)
-        launches = union_groupmin.launches
-        log(f"K1 launches in the main path's run [{scan_dtype}]: {launches}")
+        launches, sel_launches = union_groupmin.launches, masked_group_topk.launches
+        slices = plan["n_blocks"] * -(-plan["U"] // plan["u_chunk"])
+        log(f"K1 launches in the main path's run [{scan_dtype}]: {launches}; the masked "
+            f"selection's: {sel_launches}, {sel_search} in the `search` ({plan['n_blocks']} "
+            f"blocks, U {plan['U']} in slices of {plan['u_chunk']}: {slices} selections)")
         if launches <= 0:
             raise AssertionError("the main path did not launch K1")
+        if sel_search != slices:
+            raise AssertionError(f"the `search` launched the masked selection {sel_search} "
+                                 f"times, not once a block and U-slice ({slices})")
         peak = torch.cuda.max_memory_allocated()
 
         ndis = float(r.ndis.mean())
@@ -1163,7 +1191,8 @@ def phase_serving(dev, idx, batch=65536, n_gt=4096, k=10):
                                           peak=peak)
 
         profile_device(lambda: eng.search(x_q, thr, k), scan_dtype)
-        q, corpus, supers, ulen, qb, t_eff, s2, xsq = k1_main_path_inputs(eng, x_q, thr)
+        (q, corpus, supers, ulen, qb, t_eff, s2, xsq, tb_g,
+         probed_p) = k1_main_path_inputs(eng, x_q, thr)
         sel = eng.block_sel_rows
         out, ref, rec = k1_measure(q, corpus, supers, ulen, qb=qb, metric=eng.metric,
                                    sel_rows=sel, t_eff=t_eff, s2=s2, xsq=xsq, reps=3)
@@ -1182,9 +1211,123 @@ def phase_serving(dev, idx, batch=65536, n_gt=4096, k=10):
             "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
             "library_ms": rec["library_ms"],
         })
-        del eng, out, ref, q, corpus
+        del ref
+        # the engine's own kg (its calibrated margin) on its own K1 output
+        kg = min(k * eng.n_mul + eng.block_margin, out.shape[1])
+        first, exh = select_main_path(out, tb_g, probed_p, ulen, bs.S_TILES * (128 // sel), kg,
+                                      f"{scan_dtype} main path")
+        kernels.append({
+            "name": f"masked_group_topk[{scan_dtype},sel_rows={sel},kg={kg}]", "route": "cuda",
+            "source": GS_SOURCE, "replaces": GS_REPLACES, "launches": sel_launches,
+            "max_abs_err": 0.0, "ms": first["ms"], "plain_ms": first["plain_ms"],
+            "bound_ms": first["bound_ms"], "bound_by": "bytes",
+            "library_ms": first["library_ms"], "live_groups": first["n_live"],
+            "groups": first["n_g"],
+            "exhaustive": {key: exh[key] for key in ("kg", "passes", "ms", "plain_ms")},
+        })
+        del eng, out, q, corpus, tb_g, probed_p
         torch.cuda.empty_cache()
     return kernels, run
+
+
+def group_select_measure(gmin, tb, probed, live, unit, kg, tag, reps=5) -> dict:
+    """The masked selection on one block: the kernel bit for bit against
+    its plain version, then ms a block of the kernel, of the plain chain,
+    of `torch.topk` over the block's masked minima (the library yardstick:
+    one PyTorch call, no tie rule, its input prepared outside the timing)
+    and the bytes bound (the live minima, the bucket map, the probed rows
+    read once, the output written once, at 3.35 TB/s)."""
+    from lira_tpu_torch.engine.group_select import (masked_group_topk, masked_group_topk_ref,
+                                                    select_plan)
+
+    n_g, qb = gmin.shape
+    passes = select_plan(probed.shape[1], qb, kg)["passes"]
+    live_t = torch.tensor([live], dtype=torch.int32, device=gmin.device)
+    n_live = min(live * unit, n_g)
+    v, i = masked_group_topk(gmin, tb, probed, live_t, kg, unit=unit)
+    v_r, i_r = masked_group_topk_ref(gmin, tb, probed, live_t, kg, unit=unit)
+    torch.cuda.synchronize()
+    if not (torch.equal(v.view(torch.int32), v_r.view(torch.int32)) and torch.equal(i, i_r)):
+        bad = int(((v.view(torch.int32) != v_r.view(torch.int32)) | (i != i_r)).any(1).sum())
+        raise AssertionError(f"group select [{tag}]: kernel != plain version on {bad} of "
+                             f"{qb} queries")
+    del v, i, v_r, i_r
+    ms = time_ms(lambda: masked_group_topk(gmin, tb, probed, live_t, kg, unit=unit), reps)
+    plain_ms = time_ms(lambda: masked_group_topk_ref(gmin, tb, probed, live_t, kg, unit=unit),
+                       2)
+    pen = torch.where(probed.T, 0.0, 3e38).float()
+    pen = torch.cat([pen, pen.new_full((1, qb), 3e38)], dim=0)
+    masked = (-(gmin + pen[torch.where(tb >= 0, tb, pen.shape[0] - 1).long()])).T.contiguous()
+    del pen
+    library_ms = time_ms(lambda: torch.topk(masked, kg, dim=1), reps)
+    del masked
+    nbytes = n_live * qb * 4 + n_live * 4 + probed.numel() + qb * kg * 12
+    rec = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+               bound_ms=1e3 * nbytes / PEAK_BYTES, n_g=n_g, n_live=n_live, qb=qb, kg=kg,
+               passes=passes)
+    log(f"group select [{tag}]: {n_live:,} live of {n_g:,} groups x {qb} queries, kg {kg} "
+        f"({passes} pass{'es' if passes > 1 else ''}): "
+        f"equal to the plain version; {ms:.3f} ms a block, plain {plain_ms:.3f} ms, "
+        f"torch.topk {library_ms:.3f} ms, bound {rec['bound_ms']:.3f} ms (bytes)")
+    torch.cuda.empty_cache()
+    return rec
+
+
+def synthetic_select_block(dev, n_slots, sg, live, qb, n_bkt, n_probed, seed):
+    """A block shaped like K1's output on the blocked path: `live` union
+    slots of `sg` groups in runs of one bucket (a bucket's tiles are
+    consecutive), minima of a unit-variance corpus's L2 scores, `n_probed`
+    buckets a query; the padding slots at exactly 3e38 and bucket -1."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    n_g = n_slots * sg
+    gmin = 50.0 + 10.0 * torch.randn(n_g, qb, generator=g, device=dev)
+    run = max(1, (live * sg) // n_bkt)  # groups a bucket: the union covers the buckets
+    tb = (torch.arange(n_g, device=dev) // run % n_bkt).to(torch.int32)
+    tb[torch.rand(n_g, generator=g, device=dev) < 0.02] = -1  # all-pad groups
+    gmin[live * sg:] = 3e38
+    tb[live * sg:] = -1
+    probed = torch.zeros(qb, n_bkt, dtype=torch.bool, device=dev)
+    probed.scatter_(1, torch.randint(0, n_bkt, (qb, n_probed), generator=g, device=dev), True)
+    return gmin, tb, probed
+
+
+def select_main_path(gmin, tb_g, probed_p, ulen, unit, kg, tag, n_blocks=8):
+    """The masked selection on an engine's own K1 output (gmin (n_blocks,
+    U·SG, qb), unsliced as at 1M): the first `n_blocks` blocks bit for bit
+    against the plain version at the engine's kg, block 0 timed; then block
+    0 at the margin calibration's exhaustive kg (every group of the union,
+    in passes).  Returns (block 0's record, the exhaustive one)."""
+    recs = [group_select_measure(gmin[b], tb_g[b].contiguous(), probed_p[b], int(ulen[b]),
+                                 unit, kg, f"{tag}, block {b}", reps=5 if b == 0 else 1)
+            for b in range(min(n_blocks, gmin.shape[0]))]
+    exh = group_select_measure(gmin[0], tb_g[0].contiguous(), probed_p[0], int(ulen[0]), unit,
+                               gmin.shape[1], f"{tag}, block 0, exhaustive kg", reps=1)
+    return recs[0], exh
+
+
+def phase_group_select(dev) -> list:
+    """The masked group selection (csrc/group_select.cu) against its plain
+    version on synthetic blocks of the 10M cell's shape (16,384 slots of
+    32 groups, ~94% live, 34 of 2048 buckets a query) and the 1M cell's
+    (1,024 slots, 75% live, 8 of 1024), timed beside its bytes bound, the
+    plain chain and `torch.topk`.  (phase_serving holds it on each engine's
+    own K1 output and counts its launches.)  Returns the kernel records."""
+    recs = []
+    for tag, n_slots, live, n_bkt, n_probed, kg in (
+            ("10M-shaped", 16384, 15400, 2048, 34, 52), ("1M-shaped", 1024, 768, 1024, 8, 42)):
+        gmin, tb, probed = synthetic_select_block(dev, n_slots, 32, live, 1024, n_bkt,
+                                                  n_probed, seed=11)
+        rec = group_select_measure(gmin, tb, probed, live, 32, kg, tag)
+        recs.append({
+            "name": f"masked_group_topk[sel_rows=32,kg={kg},{tag} block]", "route": "cuda",
+            "source": GS_SOURCE, "replaces": GS_REPLACES, "max_abs_err": 0.0,
+            "ms": rec["ms"], "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+            "bound_by": "bytes", "library_ms": rec["library_ms"],
+            "live_groups": rec["n_live"], "groups": rec["n_g"],
+        })
+        del gmin, tb, probed
+        torch.cuda.empty_cache()
+    return recs
 
 
 def set_diff(x_d, x_q, ids_a, ids_b):
@@ -2035,11 +2178,12 @@ def phase_largescale_10m(dev, n=10_000_000, n_bkt=2048, n_q=2048, n_epoch=40, k=
 def phase_sel_rows_memory(dev, idx, run, k=10, sels=(1, 8, 16)):
     """The 1M×128 blocked search at sel_rows 1, 8 and 16 (bf16 screen),
     where K1's output is 32×, 4× and 2× the default's: the screen budget
-    (`_GMIN_BUDGET`) chunks it and the group selection runs in query slices
-    (`_SEL_BUDGET`).  The margin is phase 6's rescaled to the same rows.
-    nprobe and ndis must equal phase 6's; the peak device memory of the
-    search beyond the engine's tables must stay within 2 × _GMIN_BUDGET."""
+    (`_GMIN_BUDGET`) chunks it, and the masked selection's kernel reads it
+    once a block or U-slice.  The margin is phase 6's rescaled to the same
+    rows.  nprobe and ndis must equal phase 6's; the peak device memory of
+    the search beyond the engine's tables must stay within 2 × _GMIN_BUDGET."""
     from lira_tpu_torch.engine import block_scan
+    from lira_tpu_torch.engine.group_select import masked_group_topk
     from lira_tpu_torch.engine.screen import union_groupmin
     from lira_tpu_torch.engine.serve import QueryEngine
 
@@ -2057,7 +2201,7 @@ def phase_sel_rows_memory(dev, idx, run, k=10, sels=(1, 8, 16)):
         torch.cuda.empty_cache()
         base = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
-        union_groupmin.launches = 0
+        union_groupmin.launches = masked_group_topk.launches = 0
         r = eng.search(x_q, thr, k)
         peak = torch.cuda.max_memory_allocated() - base
         plan = block_scan._LAST_CHUNK_PLAN
@@ -2065,18 +2209,19 @@ def phase_sel_rows_memory(dev, idx, run, k=10, sels=(1, 8, 16)):
         log(f"serve[bfloat16 sel_rows={sel}]: margin {margin}, recall@{k} "
             f"{recall_at(r.ids, gt):.4f} (phase 6 sel_rows=32: {r6['recall']:.4f}), "
             f"{len(x_q) / r.elapsed:.0f} QPS ({r.elapsed:.3f}s), K1 launches "
-            f"{union_groupmin.launches}; plan {plan}: screen output "
+            f"{union_groupmin.launches}, selection launches {masked_group_topk.launches}; "
+            f"plan {plan}: screen output "
             f"{per_block / 2**30:.3f} GiB a block row, {plan['rows_per_call']} a call "
             f"({plan['rows_per_call'] * per_block / 2**30:.2f} GiB); peak device memory "
             f"of the search beyond the engine's {base / 2**30:.2f} GiB: {peak / 2**30:.2f} "
-            f"GiB (_GMIN_BUDGET {block_scan._GMIN_BUDGET / 2**30:.0f} GiB, _SEL_BUDGET "
-            f"{block_scan._SEL_BUDGET / 2**20:.0f} MiB)")
+            f"GiB (_GMIN_BUDGET {block_scan._GMIN_BUDGET / 2**30:.0f} GiB)")
         if not (np.array_equal(r.nprobe, r6["r"].nprobe)
                 and np.array_equal(r.ndis, r6["r"].ndis)):
             raise AssertionError(f"sel_rows={sel}: nprobe/ndis differ from phase 6's")
-        if union_groupmin.launches <= 0 or peak > 2 * block_scan._GMIN_BUDGET:
-            raise AssertionError(f"sel_rows={sel}: no K1 launch, or the search's peak "
-                                 f"memory {peak} exceeds 2 × _GMIN_BUDGET")
+        if (union_groupmin.launches <= 0 or masked_group_topk.launches <= 0
+                or peak > 2 * block_scan._GMIN_BUDGET):
+            raise AssertionError(f"sel_rows={sel}: no K1 or selection launch, or the "
+                                 f"search's peak memory {peak} exceeds 2 × _GMIN_BUDGET")
         del eng, r
         torch.cuda.empty_cache()
 
@@ -2374,8 +2519,9 @@ def main() -> int:
     log(f"nvidia-smi: {smi}")
 
     t0 = time.perf_counter()
-    built = build(["union_groupmin", "groupmin", "probed_scan"])  # one nvcc each, in parallel
-    log(f"built K1, K2 and K3 in {time.perf_counter() - t0:.1f}s")
+    # one nvcc each, in parallel
+    built = build(["union_groupmin", "groupmin", "probed_scan", "group_select"])
+    log(f"built K1, K2, K3 and the group selection in {time.perf_counter() - t0:.1f}s")
     for name, info in built.items():
         log(f"{name}: {info['seconds']:.1f}s -> {info['path']}")
         log(info["ptxas"])
@@ -2391,6 +2537,7 @@ def main() -> int:
         timed(phase_large_tables, dev)
         idx = timed(phase_trained_index, dev)
         kernels, run = timed(phase_serving, dev, idx)
+        kernels += timed(phase_group_select, dev)
         kernels += timed(phase_per_query, dev, idx, run)
         timed(phase_native, dev, idx, run)
         timed(phase_capacity, dev, idx, run)

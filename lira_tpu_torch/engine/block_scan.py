@@ -11,7 +11,8 @@ Per batch:
      128-row tiles) + tile→bucket maps (`build_block_unions`, numpy).
   3. `_scan_all` — the K1 screen (engine/screen.py, CUDA on the card)
      emits per-group minima over each block's union; each query then sees
-     only the groups of buckets it probed, the top-(fetch_k + margin)
+     only the groups of buckets it probed (the masked selection,
+     engine/group_select.py, CUDA on the card), the top-(fetch_k + margin)
      groups are rescored exactly in f32, deduplicated to k distinct
      neighbours, and un-permuted.
 
@@ -42,8 +43,9 @@ uploads), `scan` (the launch of `_scan_all` and of its result's copy;
 inside it `select`, each block's masked group selection, and `rescore`,
 its exact rescore) and `collect` (waiting for and unpacking results).
 `probe` and `unions` also add their host seconds to the counters
-`probe.host_s` and `unions.host_s`, and the counter `screen.pairs` sums
-the (query, row) pairs K1 screens.
+`probe.host_s` and `unions.host_s`, the counter `screen.pairs` sums the
+(query, row) pairs K1 screens, and `select.pairs` the (query, group)
+minima the selection reads.
 """
 
 from __future__ import annotations
@@ -56,6 +58,7 @@ from .. import true_fp32
 from ..ops.distance import l2_to_centroids
 from ..ops.topk import top_k
 from ..profiling import count, span
+from .group_select import masked_group_topk
 from .screen import S_TILES, screen_norms, union_groupmin
 
 _BIG = 3e38
@@ -65,12 +68,6 @@ _BIG = 3e38
 # it the union is sliced too (running top-kg merge).  Sized for an 80 GB
 # card beside a 1.5× corpus table and the selection's temporaries.
 _GMIN_BUDGET = 8 << 30
-# bytes of one block's masked screen output, (U·SG, queries) f32, that the
-# group selection takes at a time: it runs over query slices of this size,
-# so its temporaries (the penalty gather, the masked and negated copies and
-# top_k's int64 keys, ~6× the slice) stay bounded whatever sel_rows makes
-# of SG.  A whole block fits at sel_rows ≥ 32 with U ≤ 2048 and qb 1024.
-_SEL_BUDGET = 256 << 20
 # device bytes of the round-2 gather (sub, kg, sel_rows, d) f32 per step
 _R2_BUDGET = 1 << 30
 # set by _screen_rescore: the chunking plan it chose — tests assert the path
@@ -193,6 +190,26 @@ def screen_queries(q_perm: torch.Tensor, dtype: torch.dtype, dim_scale, metric: 
     return q8.contiguous(), t_eff, s2.contiguous()
 
 
+def group_buckets(tb, supers, tile_pad_count, sel_rows: int) -> torch.Tensor:
+    """The per-tile bucket map (n_blocks, U·S) int32 → per selection group
+    (n_blocks, U·SG) int32, with ALL-PAD groups masked to -1: pads are a
+    per-bucket (hence per-tile) suffix, so group j of G in a tile is pure
+    padding iff the tile's pad count covers it.  Mixed groups stay exact in
+    K1 (pads copy a real in-group row); all-pad groups' minima are a real
+    row's score (the copy) and must be masked."""
+    n_blocks, U = supers.shape
+    G = 128 // sel_rows
+    s_ar = torch.arange(S_TILES, device=tb.device, dtype=torch.int64)
+    tpc = tile_pad_count[
+        (supers.long()[:, :, None] * S_TILES + s_ar[None, None, :]).view(n_blocks, U * S_TILES)
+    ]
+    if G > 1:
+        tb = tb.repeat_interleave(G, dim=1)
+        tpc = tpc.repeat_interleave(G, dim=1)
+    gpos = torch.arange(G, device=tb.device).repeat(U * S_TILES)[None, :]
+    return torch.where(tpc >= (G - gpos) * sel_rows, -1, tb)
+
+
 @true_fp32()
 def _screen_rescore(
     q_perm: torch.Tensor,  # (B_pad, d) f32, already permuted to block order
@@ -251,46 +268,20 @@ def _screen_rescore(
         q_r2 = F.pad(q_r2, (0, d_r2 - d))
     bsq_g = bsq.view(-1, sel_rows)
     ids_g = tiles_ids.view(-1, sel_rows)
-    # per-tile bucket map → per-group, with ALL-PAD groups masked to -1:
-    # pads are a per-bucket (hence per-tile) suffix, so group j of G in a
-    # tile is pure padding iff the tile's pad count covers it.  Mixed groups
-    # stay exact in K1 (pads copy a real in-group row); all-pad groups'
-    # minima are a real row's score (the copy) and must be masked here.
-    s_ar = torch.arange(S_TILES, device=dev, dtype=torch.int64)
-    tpc = tile_pad_count[
-        (supers.long()[:, :, None] * S_TILES + s_ar[None, None, :]).view(n_blocks, U * S_TILES)
-    ]
-    tb = tb.long()
-    if G > 1:
-        tb = tb.repeat_interleave(G, dim=1)
-        tpc = tpc.repeat_interleave(G, dim=1)
-    gpos = torch.arange(G, device=dev).repeat(U * S_TILES)[None, :]
-    tb = torch.where(tpc >= (G - gpos) * sel_rows, -1, tb)
+    supers_l = supers.long()
+    tb = group_buckets(tb, supers_l, tile_pad_count, sel_rows)
     kg_eff = min(kg, U * SG)
     k_loc = min(fetch_k, kg_eff * sel_rows)
 
-    def block_penalty(probed_b):
-        # a query sees only groups of buckets it probed; row n_bkt is the
-        # catch-all penalty for padding groups (tb == -1)
-        pen = torch.where(probed_b.T, 0.0, _BIG).float()  # (n_bkt, qb)
-        return torch.cat([pen, pen.new_full((1, pen.shape[1]), _BIG)], dim=0)
-
-    def select_slice(gmin_b, pen_b, tb_b, supers_b, u0: int):
-        """Masked group selection over one U-slice of one block: the global
-        top-kg over the full union equals the top-kg of the per-slice
-        top-kgs merged (every global winner wins its own slice).  Queries
-        are selected `_SEL_BUDGET` bytes of groups at a time."""
-        tbx = torch.where(tb_b >= 0, tb_b, pen_b.shape[0] - 1)
-        n_g = gmin_b.shape[0]
-        step = max(1, _SEL_BUDGET // (n_g * 4))
-        vals, sel = [], []
-        for q0 in range(0, gmin_b.shape[1], step):
-            masked = gmin_b[:, q0 : q0 + step] + pen_b[tbx, q0 : q0 + step]  # (Uc*SG, step)
-            v, i = top_k(-masked.T, min(kg_eff, n_g))
-            vals.append(v)
-            sel.append(i)
-        vals, sel = torch.cat(vals), torch.cat(sel)
-        ggrp = supers_b.long()[u0 + sel // SG] * SG + sel % SG  # global group index
+    def select_slice(gmin_b, probed_b, tb_b, supers_b, u0: int, live):
+        """Masked group selection over one U-slice of one block (a query
+        sees only groups of buckets it probed; `live` slots of the slice
+        are the union's, the rest padding): the global top-kg over the full
+        union equals the top-kg of the per-slice top-kgs merged (every
+        global winner wins its own slice)."""
+        vals, sel = masked_group_topk(gmin_b, tb_b, probed_b, live,
+                                      min(kg_eff, gmin_b.shape[0]), unit=SG)
+        ggrp = supers_b[u0 + sel // SG] * SG + sel % SG  # global group index
         return vals, ggrp
 
     def rescore(q_b, vals, ggrp):
@@ -335,8 +326,8 @@ def _screen_rescore(
             gmin_c = screen_chunk(supers[s:e], ulen[s:e], s, e)
             for b in range(s, e):
                 with span("select"):
-                    vals, ggrp = select_slice(gmin_c[b - s], block_penalty(probed_p[b]),
-                                              tb[b], supers[b], 0)
+                    vals, ggrp = select_slice(gmin_c[b - s], probed_p[b], tb[b], supers_l[b],
+                                              0, ulen[b : b + 1])
                 with span("rescore"):
                     neg_b, ids_b = rescore(q_blocks[b], vals, ggrp)
                 neg_parts.append(neg_b)
@@ -345,7 +336,6 @@ def _screen_rescore(
     else:
         for b in range(n_blocks):
             with span("select"):
-                pen_b = block_penalty(probed_p[b])
                 carry_v = torch.full((qb, kg_eff), -torch.inf, device=dev)
                 carry_g = torch.zeros((qb, kg_eff), dtype=torch.int64, device=dev)
             for u0 in range(0, U, u_chunk):
@@ -356,7 +346,7 @@ def _screen_rescore(
                 gmin_c = screen_chunk(supers[b : b + 1, u0:u1], ulen_c, b, b + 1)[0]
                 with span("select"):
                     vals_c, ggrp_c = select_slice(
-                        gmin_c, pen_b, tb[b, u0 * SG : u1 * SG], supers[b], u0
+                        gmin_c, probed_p[b], tb[b, u0 * SG : u1 * SG], supers_l[b], u0, ulen_c
                     )
                     del gmin_c
                     mv = torch.cat([carry_v, vals_c], dim=1)
@@ -450,6 +440,12 @@ class BlockScanState:
         from .. import resolve_device
 
         dev = resolve_device(device)
+        if dev.type == "cuda":
+            # the serving path's two kernels, K1 and the masked selection:
+            # their nvcc runs in parallel, here rather than at first launch
+            from ..kernels import build
+
+            build(["union_groupmin", "group_select"])
         self = cls.__new__(cls)
         x_d = np.asarray(x_d)
         n, d = x_d.shape
@@ -733,8 +729,10 @@ def _dispatch_scan(state, engine, h, union, fetch_k, k, kg, sel_rows, wire):
             union, engine.tile_start, engine.tiles_per_bucket, state.tile_bucket
         )
         supers_d, tb_d, ulen_d = (torch.as_tensor(a, device=dev) for a in (supers, tb, ulen))
-    # every query of a block against every row of its union's supertiles
+    # every query of a block against every row of its union's supertiles,
+    # and the (query, group) minima the selection reads
     count("screen.pairs", h["qb"] * int(ulen.sum()) * S_TILES * 128)
+    count("select.pairs", h["qb"] * int(ulen.sum()) * S_TILES * (128 // sel_rows))
     with span("scan"):
         sub = _round2_sub(kg, sel_rows, h["q"].shape[1], h["qb"])
         scores, ids = _scan_all(

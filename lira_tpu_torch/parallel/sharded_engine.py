@@ -457,10 +457,11 @@ def serve_rank(x_d, layout, centroids, scaler, params, requests, *, mesh: Mesh,
 
     Returns {"results": the answers in order (the same on every rank),
     "build_s": engine build seconds, "ranks": one dict per rank, in rank
-    order: its device, its K1 launches while answering, and (on the card)
-    its peak device memory}."""
+    order: its device, its K1 and masked-selection launches while
+    answering, and (on the card) its peak device memory}."""
     import torch.distributed as dist
 
+    from ..engine.group_select import masked_group_topk
     from ..engine.screen import union_groupmin
 
     dev = mesh.device
@@ -469,7 +470,7 @@ def serve_rank(x_d, layout, centroids, scaler, params, requests, *, mesh: Mesh,
     t0 = time.perf_counter()
     engine = ShardedQueryEngine(x_d, layout, centroids, scaler, params, mesh, **engine_kw)
     build_s = time.perf_counter() - t0
-    k1_before = union_groupmin.launches
+    k1_before, select_before = union_groupmin.launches, masked_group_topk.launches
     results = []
     for name, args, kwargs in requests:
         if name not in _REQUESTS:
@@ -478,6 +479,7 @@ def serve_rank(x_d, layout, centroids, scaler, params, requests, *, mesh: Mesh,
     mine = {
         "rank": mesh.rank, "device": str(dev), "local_impl": engine.local_impl,
         "k1_launches": union_groupmin.launches - k1_before,
+        "select_launches": masked_group_topk.launches - select_before,
         "peak_bytes": torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else None,
     }
     ranks = [None] * mesh.size

@@ -25,6 +25,7 @@ from lira_tpu.ops.distance import l2_to_centroids
 from lira_tpu.partition.assign import build_bucket_layout as j_layout
 from lira_tpu.partition.kmeans import kmeans_fit
 from lira_tpu_torch.engine import block_scan as tbs
+from lira_tpu_torch.engine import group_select as tgs
 from lira_tpu_torch.engine.calibrate import autotune_block_q, calibrate_block_margin
 from lira_tpu_torch.engine.serve import QueryEngine as TorchEngine
 from lira_tpu_torch.models.probing_mlp import params_from_jax
@@ -170,10 +171,10 @@ def test_block_row_and_union_chunking_match(index, monkeypatch):
 
 @pytest.mark.parametrize("sel_rows", [1, 32])
 def test_selection_in_query_slices_matches(index, monkeypatch, sel_rows):
-    """_SEL_BUDGET at one query's groups: the masked selection runs one
-    query at a time, and the results stay those of lira_tpu."""
+    """_SEL_BUDGET at one query's groups: the plain masked selection runs
+    one query at a time, and the results stay those of lira_tpu."""
     e_j, e_t = _engines(index, scan_dtype="bfloat16", block_sel_rows=sel_rows, block_q=8)
-    monkeypatch.setattr(tbs, "_SEL_BUDGET", 1)
+    monkeypatch.setattr(tgs, "_SEL_BUDGET", 1)
     for thr in _thresholds(e_j.probe(index["x_q"]))[:2]:
         _assert_same(e_j.search(index["x_q"], thr, K), e_t.search(index["x_q"], thr, K),
                      (sel_rows, thr))
@@ -387,8 +388,8 @@ def _inside(e, outer):
 def test_blocked_spans_nest_under_their_root(index, tmp_path, root):
     """Under a profiler on the CPU the blocked engine's call is one root
     span holding every phase's; `select` and `rescore` lie inside `scan`;
-    `probe` and `unions` add their host seconds to counters; the ids equal
-    an untraced call's."""
+    `probe` and `unions` add their host seconds to counters, beside the
+    screen's and the selection's pairs; the ids equal an untraced call's."""
     from lira_tpu_torch import profiling
 
     _, e_t = _engines(index, block_q=8, scan_dtype="int8")
@@ -409,7 +410,8 @@ def test_blocked_spans_nest_under_their_root(index, tmp_path, root):
     for e in evs:
         if e["name"] in ("select", "rescore"):
             assert any(_inside(e, s) for s in scans)
-    assert set(profiling.counters()) == {"screen.pairs", "probe.host_s", "unions.host_s"}
+    assert set(profiling.counters()) == {"screen.pairs", "select.pairs", "probe.host_s",
+                                         "unions.host_s"}
     assert all(v > 0 for v in profiling.counters().values())
 
 

@@ -91,11 +91,81 @@ def test_k1_kernel_matches_plain(cuda, dtype, metric, sel_rows, d, qb, ulen):
     assert float((got - want).abs().max()) <= tol
 
 
+def _select_block(dev, n_g, qb, case, seed, n_bkt=12, live=None, p=0.3):
+    """One block's K1 output as the engine hands it to the selection:
+    minima (n_g, qb), buckets (n_g,) with all-pad groups at -1, and past
+    `live` groups the union's padding slots (exactly 3e38, bucket -1)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    live = n_g if live is None else live
+    gmin = torch.randn(n_g, qb, generator=g, device=dev) * 100
+    if case == "ties":
+        gmin = torch.round(gmin / 40) * 40
+    if case == "negzero":  # +-0 minima lead: the rest are positive
+        gmin = gmin.abs() + 1
+        z = torch.rand(n_g, qb, generator=g, device=dev) < 0.4
+        gmin = torch.where(z, torch.where(torch.rand(n_g, qb, generator=g, device=dev) < 0.5,
+                                          -0.0, 0.0), gmin)
+    tb = torch.randint(0, n_bkt, (n_g,), generator=g, device=dev, dtype=torch.int32)
+    tb[torch.rand(n_g, generator=g, device=dev) < 0.1] = -1
+    probed = torch.rand(qb, n_bkt, generator=g, device=dev) < p
+    if case == "all_masked":
+        probed[::2] = False
+    if case == "few_finite":
+        probed[:] = False
+        probed[:, 0] = True
+    gmin[live:] = 3e38
+    tb[live:] = -1
+    return gmin.contiguous(), tb, probed
+
+
+def _check_select(gmin, tb, probed, live_slots, unit, kg):
+    from lira_tpu_torch.engine.group_select import masked_group_topk, masked_group_topk_ref
+
+    live = torch.tensor([live_slots], dtype=torch.int32, device=gmin.device)
+    before = masked_group_topk.launches
+    v, i = masked_group_topk(gmin, tb, probed, live, kg, unit=unit)
+    torch.cuda.synchronize()
+    assert masked_group_topk.launches == before + 1
+    v_r, i_r = masked_group_topk_ref(gmin, tb, probed, live, kg, unit=unit)
+    assert torch.equal(v.view(torch.int32), v_r.view(torch.int32))
+    assert torch.equal(i, i_r)
+
+
+# every case of the CPU test of the plain version (ties, +-0 minima, queries
+# that probe nothing, fewer finite groups than kg, padding slots), at qb 8
+# (the engine's smallest block) and 1,024 (the cells')
+@pytest.mark.parametrize("qb", [8, 1024])
+@pytest.mark.parametrize("case", ["plain", "ties", "negzero", "all_masked", "few_finite",
+                                  "short_live"])
+@pytest.mark.parametrize("kg", [1, 42, 52, 256])
+@pytest.mark.parametrize("sel_rows", [1, 8, 32, 64, 128])
+def test_group_select_kernel_matches_plain(cuda, sel_rows, kg, case, qb):
+    U, SG = 4, 1024 // sel_rows
+    live = U - 1 if case == "short_live" else U
+    gmin, tb, probed = _select_block(cuda, U * SG, qb, case, sel_rows + kg, live=live * SG)
+    _check_select(gmin, tb, probed, live, SG, min(kg, U * SG))
+
+
+# the cells' shapes (1M: 32,768 groups, ~75% live; 10M: 524,288, ~94% live;
+# ~1.6% of the buckets probed), qb 200 (no multiple of a query tile), and kg
+# beyond 32 queries a CTA: 900 at 16 queries a CTA, 1,224 at 8, and every
+# group of the union (the margin calibration's exhaustive reference, in
+# passes)
+@pytest.mark.parametrize("n_g,qb,live,kg,n_bkt,p", [
+    (32768, 1024, 24576, 42, 1024, 0.008), (524288, 1024, 491520, 52, 2048, 0.016),
+    (4096, 200, 3000, 52, 64, 0.1), (32768, 1024, 24576, 900, 1024, 0.008),
+    (32768, 256, 30000, 1224, 2048, 0.016), (8192, 256, 7000, 8192, 2048, 0.05)])
+def test_group_select_kernel_at_the_cells_shapes(cuda, n_g, qb, live, kg, n_bkt, p):
+    gmin, tb, probed = _select_block(cuda, n_g, qb, "plain", 5, n_bkt=n_bkt, live=live, p=p)
+    _check_select(gmin, tb, probed, live, 1, kg)
+
+
 # d = 37: the int8 table is zero-padded to 40 columns; sel_rows 1 and 8:
 # groups below a wgmma quad's 8 columns and below the FMA tile's 16 lanes
 @pytest.mark.parametrize("dim,sel_rows", [(32, None), (37, None), (32, 8), (32, 1)])
 @pytest.mark.parametrize("scan_dtype", ["float32", "bfloat16", "int8"])
 def test_cuda_engine_matches_cpu_engine(cuda, scan_dtype, dim, sel_rows):
+    from lira_tpu_torch.engine.group_select import masked_group_topk
     from lira_tpu_torch.engine.serve import QueryEngine
     from lira_tpu_torch.labels.scaler import scaled_centroid_distances
     from lira_tpu_torch.models.probing_mlp import ProbingMLP
@@ -116,13 +186,49 @@ def test_cuda_engine_matches_cpu_engine(cuda, scan_dtype, dim, sel_rows):
     while v[j + 1] - v[j] < 1e-5:
         j += 1
     thr = float((v[j] + v[j + 1]) / 2)
+    select_before = masked_group_topk.launches
     r_c, r_g = e_cpu.search(xq, thr, 10), e_gpu.search(xq, thr, 10)
+    assert masked_group_topk.launches > select_before  # the card's selection is the kernel
     np.testing.assert_array_equal(r_c.nprobe, r_g.nprobe)
     np.testing.assert_array_equal(r_c.ndis, r_g.ndis)
     for i in range(len(xq)):
         assert set(r_c.ids[i]) == set(r_g.ids[i]), i
     r_s = e_gpu.search_stream(np.concatenate([xq, xq]), thr, 10, batch_size=300)
     np.testing.assert_array_equal(r_s.ids, np.concatenate([r_g.ids, r_g.ids]))
+
+
+def test_cuda_engine_union_slices_match_cpu_engine(cuda, monkeypatch):
+    """_GMIN_BUDGET at one supertile: each block's union is screened and
+    selected one slice at a time (the running top-kg merge), one kernel
+    call a slice, and the card's answers stay the CPU engine's."""
+    from lira_tpu_torch.engine import block_scan
+    from lira_tpu_torch.engine.group_select import masked_group_topk
+    from lira_tpu_torch.engine.serve import QueryEngine
+    from lira_tpu_torch.labels.scaler import scaled_centroid_distances
+    from lira_tpu_torch.models.probing_mlp import ProbingMLP
+    from lira_tpu_torch.partition import build_bucket_layout, kmeans_assign, kmeans_fit
+
+    rng = np.random.default_rng(3)
+    x = rng.normal(size=(4000, 32)).astype(np.float32)
+    xq = rng.normal(size=(100, 32)).astype(np.float32)
+    km = kmeans_fit(x, 16, niter=5, device="cpu")
+    layout = build_bucket_layout(kmeans_assign(x, km.centroids, device="cpu"), 16)
+    _, _, sc = scaled_centroid_distances(x, None, km.centroids, device="cpu")
+    mlp = ProbingMLP(16, 32, generator=torch.Generator().manual_seed(0))
+    kw = dict(scan_dtype="int8", probe_cap=8, block_q=32)
+    e_cpu = QueryEngine(x, layout, km.centroids, sc, mlp, device="cpu", **kw)
+    e_gpu = QueryEngine(x, layout, km.centroids, sc, mlp, device=cuda, **kw)
+    thr = float(np.quantile(e_cpu.probe(xq), 0.7))
+    monkeypatch.setattr(block_scan, "_GMIN_BUDGET", 1)
+    r_c = e_cpu.search(xq, thr, 10)
+    before = masked_group_topk.launches
+    r_g = e_gpu.search(xq, thr, 10)
+    plan = block_scan._LAST_CHUNK_PLAN
+    assert plan["u_chunk"] == 1 and plan["U"] >= 2, plan
+    assert masked_group_topk.launches - before == plan["n_blocks"] * plan["U"]
+    np.testing.assert_array_equal(r_c.nprobe, r_g.nprobe)
+    for i in range(len(xq)):
+        assert set(r_c.ids[i]) == set(r_g.ids[i]), i
 
 
 # d = 37: no multiple of 4 floats (4-byte copies; the tensor cores' tables
@@ -373,7 +479,8 @@ def test_sharded_engine_on_the_card_matches_single_chip(cuda):
         r1 = single.search(xq, thr, 10)
         r2, r_s = out["results"]
         assert all(r["local_impl"] == "pallas" and r["k1_launches"] > 0
-                   and r["device"] == "cuda:0" for r in out["ranks"]), kw
+                   and r["select_launches"] > 0 and r["device"] == "cuda:0"
+                   for r in out["ranks"]), kw
         np.testing.assert_array_equal(r1.nprobe, r2.nprobe)
         np.testing.assert_array_equal(r1.ndis, r2.ndis)
         if kw["scan_dtype"] == "float32":
