@@ -50,7 +50,8 @@ def build_index(
     n_d, dim = x_d.shape
     n_bkt = cfg.n_bkt
 
-    knn_data = get_self_knn(x_d, cfg, use_cache=use_cache, device=dev)
+    with stage_timer("self knn", fw):
+        knn_data = get_self_knn(x_d, cfg, use_cache=use_cache, device=dev)
 
     with stage_timer("build kmeans index", fw):
         km = kmeans_fit(x_d, n_bkt, niter=cfg.kmeans_niter, seed=cfg.seed,
@@ -79,14 +80,15 @@ def build_index(
     if cfg.duplicate_type == "model":
         # device-reduced counts select the boundary minority; only its rows
         # are re-scored
-        counts = predict_counts(state, dist_d, train_vec, sigma=cfg.sigma)
-        selected = np.sort(select_top_ratio(counts, cfg.redundancy_ratio))
-        fprint(f">> redundancy: duplicating {len(selected)}/{n_d} boundary vectors", fw)
-        sel_t = torch.as_tensor(selected, device=dev)
-        sel_vec = train_vec[sel_t] if isinstance(train_vec, torch.Tensor) else x_d[selected]
-        sel_predicts, sel_scores = infer(state, dist_d[sel_t], sel_vec, sigma=cfg.sigma)
-        data_2_bkt = apply_redundancy_subset(data_2_bkt, sel_scores, sel_predicts, selected,
-                                             device=dev)
+        with stage_timer("redundancy", fw):
+            counts = predict_counts(state, dist_d, train_vec, sigma=cfg.sigma)
+            selected = np.sort(select_top_ratio(counts, cfg.redundancy_ratio))
+            fprint(f">> redundancy: duplicating {len(selected)}/{n_d} boundary vectors", fw)
+            sel_t = torch.as_tensor(selected, device=dev)
+            sel_vec = train_vec[sel_t] if isinstance(train_vec, torch.Tensor) else x_d[selected]
+            sel_predicts, sel_scores = infer(state, dist_d[sel_t], sel_vec, sigma=cfg.sigma)
+            data_2_bkt = apply_redundancy_subset(data_2_bkt, sel_scores, sel_predicts, selected,
+                                                 device=dev)
     del dist_d, train_vec, train_tgt
 
     extra_meta = {"k": cfg.k, "redundancy_ratio": cfg.redundancy_ratio}

@@ -411,8 +411,10 @@ def test_blocked_spans_nest_under_their_root(index, tmp_path, root):
         if e["name"] in ("select", "rescore"):
             assert any(_inside(e, s) for s in scans)
     assert set(profiling.counters()) == {"screen.pairs", "select.pairs", "probe.host_s",
-                                         "unions.host_s"}
+                                         "unions.host_s", "rescore.steps"}
     assert all(v > 0 for v in profiling.counters().values())
+    # at d 16 one round-2 step holds a whole block: a step a `rescore` span
+    assert profiling.counters()["rescore.steps"] == sum(e["name"] == "rescore" for e in evs)
 
 
 def test_per_query_spans_nest_under_their_root(index, tmp_path):
