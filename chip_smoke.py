@@ -59,7 +59,12 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      exhaustive kg; then the selection alone (`phase_group_select`) on a
      10M-shaped block (524,288 groups x 1,024 queries) and a 1M-shaped
      one; each timed beside its bytes bound, the plain chain and
-     `torch.topk` over the masked minima;
+     `torch.topk` over the masked minima; the exact rescore launched once a
+     block by the `search`, then (`phase_group_rescore`) held against its
+     plain version on the first 4 blocks of a `search` of an int8 engine
+     and of capacity mode's bf16 and int8 engines, as the engines pass
+     them, and on seeded 10M- and GIST-shaped blocks, each timed beside
+     its bytes bounds, the plain chain and the gather + `torch.bmm`;
      then on the same trained index and threshold:
      - the per-query engines, scan_impl "pallas" (K3) and "xla", in f32
        and bf16 on the full 65536-query batch: nprobe/ndis equal to the
@@ -181,6 +186,10 @@ K3_MERGE_REPLACES = "lira_tpu/engine/pallas_scan.py:247"
 # selects in XLA (select_slice's masked add and lax.top_k)
 GS_SOURCE = "lira_tpu_torch/csrc/group_select.cu"
 GS_REPLACES = "none: XLA in lira_tpu/engine/block_scan.py:443"
+# the exact rescore replaces none either: the JAX package rescores in XLA
+# (rescore_block's gather, einsum and lax.top_k)
+GR_SOURCE = "lira_tpu_torch/csrc/group_rescore.cu"
+GR_REPLACES = "none: XLA in lira_tpu/engine/block_scan.py:457"
 # the TPU record (BENCH_r05.json; only its hardware-independent columns)
 TPU_RECALL, TPU_NDIS = 0.8370, 7755
 MIN_INT8_RECALL = 0.75  # the trained MLP's floor at the bench's operating point
@@ -397,9 +406,10 @@ def kernel_sass_check(built) -> None:
     HGMMA (bf16) and IGMMA (int8), and so must K2's "default" and int8
     sweeps (`k2_groupmin_bf16`: HGMMA, `k2_groupmin_int8`: IGMMA); K1's and
     K2's f32 functions
-    (`k1_groupmin_fma`, `k2_groupmin_fma`) and K3's (`tile_scan_kernel`)
-    must hold FFMA and no HMMA or HGMMA — f32 stays on CUDA-core FMAs,
-    never TF32.  Fails otherwise."""
+    (`k1_groupmin_fma`, `k2_groupmin_fma`), K3's (`tile_scan_kernel`) and
+    the rescore's (`rescore_kernel`, every table dtype) must hold FFMA and
+    no HMMA or HGMMA — f32 stays on CUDA-core FMAs, never TF32.  Fails
+    otherwise."""
     k1 = sass_functions(built["union_groupmin"]["path"])
     wg = "".join(body for name, body in k1.items() if "groupmin_wgmma" in name)
     ops = re.findall(r"\b[A-Z]*GMMA\.[\w.]+", wg)
@@ -418,8 +428,9 @@ def kernel_sass_check(built) -> None:
             if n_mma == 0:
                 raise AssertionError(f"K2 {func}: no {mma} (must run on the tensor cores)")
     k3 = sass_functions(built["probed_scan"]["path"])
+    gr = sass_functions(built["group_rescore"]["path"])
     for lib, tag, funcs in ((k1, "K1", "k1_groupmin_fma"), (k2, "K2", "k2_groupmin_fma"),
-                            (k3, "K3", "tile_scan_kernel")):
+                            (k3, "K3", "tile_scan_kernel"), (gr, "rescore", "rescore_kernel")):
         found = {name: body for name, body in lib.items() if funcs in name}
         if not found:
             raise AssertionError(f"{tag}: no {funcs} function in its library's SASS")
@@ -1121,6 +1132,7 @@ def phase_serving(dev, idx, batch=65536, n_gt=4096, k=10):
     dtype's result, recall and margin)."""
     from lira_tpu_torch.engine import block_scan as bs
     from lira_tpu_torch.engine.calibrate import calibrate_block_margin
+    from lira_tpu_torch.engine.group_rescore import exact_group_rescore
     from lira_tpu_torch.engine.group_select import masked_group_topk
     from lira_tpu_torch.engine.screen import union_groupmin
     from lira_tpu_torch.engine.serve import QueryEngine
@@ -1153,10 +1165,10 @@ def phase_serving(dev, idx, batch=65536, n_gt=4096, k=10):
 
         big = np.tile(x_q, (4, 1))
         torch.cuda.reset_peak_memory_stats()
-        union_groupmin.launches = masked_group_topk.launches = 0
+        union_groupmin.launches = masked_group_topk.launches = exact_group_rescore.launches = 0
         r = eng.search(x_q, thr, k)
         plan = dict(bs._LAST_CHUNK_PLAN)
-        sel_search = masked_group_topk.launches
+        sel_search, rescore_search = masked_group_topk.launches, exact_group_rescore.launches
         r_s = eng.search_stream(big, thr, k, batch_size=batch)
         launches, sel_launches = union_groupmin.launches, masked_group_topk.launches
         slices = plan["n_blocks"] * -(-plan["U"] // plan["u_chunk"])
@@ -1168,6 +1180,9 @@ def phase_serving(dev, idx, batch=65536, n_gt=4096, k=10):
         if sel_search != slices:
             raise AssertionError(f"the `search` launched the masked selection {sel_search} "
                                  f"times, not once a block and U-slice ({slices})")
+        if rescore_search != plan["n_blocks"]:
+            raise AssertionError(f"the `search` launched the rescore {rescore_search} times, "
+                                 f"not once a block ({plan['n_blocks']})")
         peak = torch.cuda.max_memory_allocated()
 
         ndis = float(r.ndis.mean())
@@ -1326,6 +1341,180 @@ def phase_group_select(dev) -> list:
             "live_groups": rec["n_live"], "groups": rec["n_g"],
         })
         del gmin, tb, probed
+        torch.cuda.empty_cache()
+    return recs
+
+
+def rescore_compare(neg, ids, neg_r, ids_r, q, table, tag):
+    """The rescore kernel's (neg, ids) against its plain version's: scores
+    within 2·d·eps32·(max‖x‖² + 2·max‖x‖·‖q‖) (the same products summed in
+    another f32 order), ids equal except at slots whose plain scores lie
+    within twice that of a neighbour's, or at the list's cut.  Returns (max
+    |kernel − plain|, slots whose ids differ)."""
+    x = table.float()
+    xn = float((x * x).sum(-1).max())
+    del x
+    tol = 2 * table.shape[2] * EPS32 * (xn + 2 * (xn * (q * q).sum(1, keepdim=True)).sqrt())
+    diff = (neg - neg_r).abs()
+    if not bool((diff <= tol).all()):
+        raise AssertionError(f"rescore [{tag}]: |kernel - plain| {float(diff.max()):.3g} "
+                             f"above the summation-order bound")
+    near = torch.zeros_like(ids, dtype=torch.bool)
+    gap = (neg_r[:, 1:] - neg_r[:, :-1]).abs() <= 2 * tol
+    near[:, 1:] |= gap
+    near[:, :-1] |= gap
+    near[:, -1] = True
+    mism = ids != ids_r
+    if bool((mism & ~near).any()):
+        raise AssertionError(f"rescore [{tag}]: ids differ from the plain version's away from "
+                             f"near-ties on {int((mism & ~near).any(1).sum())} queries")
+    return float(diff.max()), int(mism.sum())
+
+
+def rescore_measure(args, metric, k_loc, tag, reps=5) -> dict:
+    """The exact rescore on one block (args: q, vals, ggrp, table, bsq,
+    ids as the engine passes them): the kernel against its plain version
+    (`rescore_compare`), then ms a block of the kernel, of the plain chain,
+    of the library yardstick (the group gather and `torch.bmm` in the plain
+    version's steps, no top-k), and two bytes bounds at 3.35 TB/s: each
+    query's live selected rows read once (`query_bound_ms`) and the block's
+    distinct live rows read once (`bound_ms`, the least), with the queries,
+    selections, norms, ids and output."""
+    from lira_tpu_torch.engine.group_rescore import (_round2_sub, exact_group_rescore,
+                                                     exact_group_rescore_ref)
+
+    q, vals, ggrp, table, bsq, ids = args
+    qb, kg = ggrp.shape
+    _, sel_rows, d = table.shape
+    sub = _round2_sub(kg, sel_rows, d, qb)
+    kw = dict(metric=metric, k_loc=k_loc)
+    neg, ids_k = exact_group_rescore(*args, **kw)
+    neg_r, ids_r = exact_group_rescore_ref(*args, sub=sub, **kw)
+    torch.cuda.synchronize()
+    err, differ = rescore_compare(neg, ids_k, neg_r, ids_r, q, table, tag)
+    del neg, ids_k, neg_r, ids_r
+    ms = time_ms(lambda: exact_group_rescore(*args, **kw), reps)
+    plain_ms = time_ms(lambda: exact_group_rescore_ref(*args, sub=sub, **kw), 2)
+
+    def library():
+        for s0 in range(0, qb, sub):
+            sg = ggrp[s0 : s0 + sub]
+            vec = table[sg].float().view(sg.shape[0], kg * sel_rows, d)
+            torch.bmm(vec, q[s0 : s0 + sub, :, None])
+
+    library_ms = time_ms(library, reps)
+    valid = vals > -1.5e38
+    live = (ids[ggrp] >= 0) & valid[:, :, None]  # (qb, kg, sel_rows)
+    row_bytes = d * table.element_size() + 8  # the row, its norm and id
+    extra = qb * (d * 4 + kg * 12 + k_loc * 8)
+    n_live = int(live.sum())
+    n_distinct = int((ids[torch.unique(ggrp[valid])] >= 0).sum())
+    rec = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+               bound_ms=1e3 * (n_distinct * row_bytes + extra) / PEAK_BYTES,
+               query_bound_ms=1e3 * (n_live * row_bytes + extra) / PEAK_BYTES,
+               live_rows_per_query=n_live / qb, distinct_rows=n_distinct, max_abs_err=err,
+               ids_differ=differ, qb=qb, kg=kg, d=d, k_loc=k_loc, sub=sub)
+    log(f"rescore [{tag}]: {qb} queries, kg {kg}, sel_rows {sel_rows}, d {d}, "
+        f"{str(table.dtype).removeprefix('torch.')}, k_loc {k_loc}: {n_live / qb:.0f} live rows "
+        f"a query, {n_distinct:,} distinct; max|kernel-plain| {err:.3g}, {differ} ids apart "
+        f"at near-ties; {ms:.3f} ms a block, plain {plain_ms:.3f} ms ({-(-qb // sub)} steps), "
+        f"gather + bmm {library_ms:.3f} ms, bound {rec['bound_ms']:.3f} ms (distinct rows) / "
+        f"{rec['query_bound_ms']:.3f} ms (each query's rows)")
+    return rec
+
+
+def captured_rescores(eng, x_q, thr, k, n_blocks=4):
+    """The rescore's inputs on the first `n_blocks` blocks of a `search` of
+    x_q, as the engine passes them (the engine's own selections, tables and
+    k_loc), recorded around block_scan's call of the wrapper."""
+    from lira_tpu_torch.engine import block_scan as bs
+
+    real, calls = bs.exact_group_rescore, []
+
+    def record(*args, **kw):
+        if len(calls) < n_blocks:
+            calls.append(([a.clone() for a in args[:3]] + list(args[3:]), kw))
+        return real(*args, **kw)
+
+    bs.exact_group_rescore = record
+    try:
+        eng.search(x_q, thr, k)
+    finally:
+        bs.exact_group_rescore = real
+    return calls
+
+
+def synthetic_rescore_block(dev, n_groups, d, qb, kg, seed, sel_rows=32):
+    """A block shaped like the engine's: a Gaussian f32 table of n_groups
+    groups (norms, ids, 2% −1 ids), each query's kg distinct groups drawn
+    from a window of 6·kg groups that 32 consecutive queries share and that
+    moves 3·kg groups every 32 queries (queries of a tour-grouped block
+    share their top buckets), 1% of the slots invalid."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.empty((n_groups, sel_rows, d), device=dev)
+    for s0 in range(0, n_groups, 4096):
+        x[s0 : s0 + 4096] = torch.randn(x[s0 : s0 + 4096].shape, generator=g, device=dev)
+    ids = torch.arange(n_groups * sel_rows, device=dev, dtype=torch.int32).view(n_groups,
+                                                                              sel_rows)
+    ids[torch.rand(ids.shape, generator=g, device=dev) < 0.02] = -1
+    bsq = torch.where(ids >= 0, (x * x).sum(-1), 3e38)
+    q = torch.randn((qb, d), generator=g, device=dev)
+    home = (torch.arange(qb, device=dev)[:, None] // 32) * 3 * kg
+    pick = torch.argsort(torch.rand((qb, 6 * kg), generator=g, device=dev), dim=1)[:, :kg]
+    ggrp = ((home + pick) % n_groups).contiguous()
+    vals = -50.0 - torch.rand((qb, kg), generator=g, device=dev)
+    vals[torch.rand((qb, kg), generator=g, device=dev) < 0.01] = -torch.inf
+    return q, vals, ggrp, x, bsq, ids
+
+
+def phase_group_rescore(dev, idx=None, run=None, k=10) -> list:
+    """The exact rescore (csrc/group_rescore.cu) against its plain version
+    on each cell's block shape: where phase_serving's 1M index is given,
+    the first 4 blocks of a 65,536-query `search` of its int8 engine
+    (kg 10 + margin, k_loc 10, d 128: the 1M cell's block) and of capacity
+    mode's bf16 and int8 engines (their tables widened in the kernel),
+    captured as the engine passes them; else a seeded 1M-shaped block; and
+    seeded blocks of the 10M cell's shape (kg 52, k_loc 20, d 128) and
+    GIST's (kg 52, k_loc 20, d 960).  Returns the kernel records."""
+    from lira_tpu_torch.engine.serve import QueryEngine
+
+    recs = []
+
+    def record(rec, tag, table_dtype):
+        recs.append({
+            "name": f"exact_group_rescore[{table_dtype},kg={rec['kg']},k_loc={rec['k_loc']},"
+                    f"d={rec['d']},{tag}]",
+            "route": "cuda", "source": GR_SOURCE, "replaces": GR_REPLACES,
+            **{key: rec[key] for key in ("max_abs_err", "ids_differ", "ms", "plain_ms",
+                                         "bound_ms", "query_bound_ms", "library_ms",
+                                         "live_rows_per_query", "distinct_rows")},
+            "bound_by": "bytes",
+        })
+
+    if idx is not None:
+        x_d, x_q, km, layout, scaler, mlp = (idx[key] for key in
+                                             ("x_d", "x_q", "km", "layout", "scaler", "mlp"))
+        for dt, store_f32 in (("int8", True), ("bfloat16", False), ("int8", False)):
+            eng = QueryEngine(x_d, layout, km.centroids, scaler, mlp, probe_cap=128,
+                              scan_impl="blocked", block_q=1024, scan_dtype=dt,
+                              store_f32=store_f32, block_margin=run["results"][dt]["margin"],
+                              device=dev)
+            tag = f"1M main path{'' if store_f32 else ' capacity'} {dt}"
+            table_dtype = "float32" if store_f32 else dt
+            for b, (args, kw) in enumerate(captured_rescores(eng, x_q, run["thr"], k)):
+                rec = rescore_measure(args, kw["metric"], kw["k_loc"], f"{tag}, block {b}",
+                                      reps=5 if b == 0 else 1)
+                if b == 0:
+                    record(rec, f"{tag} block 0", table_dtype)
+            del eng
+            torch.cuda.empty_cache()
+    shapes = [("10M-shaped", 65536, 128, 52, 20), ("GIST-shaped", 32768, 960, 52, 20)]
+    if idx is None:
+        shapes.insert(0, ("1M-shaped", 32768, 128, 42, 10))
+    for tag, n_groups, d, kg, k_loc in shapes:
+        args = synthetic_rescore_block(dev, n_groups, d, 1024, kg, seed=13)
+        record(rescore_measure(args, "L2", k_loc, tag), f"{tag} block", "float32")
+        del args
         torch.cuda.empty_cache()
     return recs
 
@@ -2405,6 +2594,8 @@ def phase_sharded(dev, idx, run, batch=65536, k=10):
                  for rk in ranks]
         if any(rk["local_impl"] != "pallas" for rk in ranks) or min(k1) <= 0:
             raise AssertionError(f"[{tag}] a rank did not serve through K1: {ranks}")
+        if min(rk["rescore_launches"] for rk in ranks) <= 0:
+            raise AssertionError(f"[{tag}] a rank did not rescore through its kernel: {ranks}")
         if not (np.array_equal(r.nprobe, r6.nprobe) and np.array_equal(r.ndis, r6.ndis)):
             raise AssertionError(f"[{tag}] nprobe/ndis differ from phase 6's")
         if r.ids.shape[1] != k or not np.isfinite(r.scores[r.ids >= 0]).all():
@@ -2520,8 +2711,10 @@ def main() -> int:
 
     t0 = time.perf_counter()
     # one nvcc each, in parallel
-    built = build(["union_groupmin", "groupmin", "probed_scan", "group_select"])
-    log(f"built K1, K2, K3 and the group selection in {time.perf_counter() - t0:.1f}s")
+    built = build(["union_groupmin", "groupmin", "probed_scan", "group_select",
+                   "group_rescore"])
+    log(f"built K1, K2, K3, the group selection and the rescore in "
+        f"{time.perf_counter() - t0:.1f}s")
     for name, info in built.items():
         log(f"{name}: {info['seconds']:.1f}s -> {info['path']}")
         log(info["ptxas"])
@@ -2538,6 +2731,7 @@ def main() -> int:
         idx = timed(phase_trained_index, dev)
         kernels, run = timed(phase_serving, dev, idx)
         kernels += timed(phase_group_select, dev)
+        kernels += timed(phase_group_rescore, dev, idx, run)
         kernels += timed(phase_per_query, dev, idx, run)
         timed(phase_native, dev, idx, run)
         timed(phase_capacity, dev, idx, run)

@@ -13,8 +13,8 @@ Per batch:
      emits per-group minima over each block's union; each query then sees
      only the groups of buckets it probed (the masked selection,
      engine/group_select.py, CUDA on the card), the top-(fetch_k + margin)
-     groups are rescored exactly in f32, deduplicated to k distinct
-     neighbours, and un-permuted.
+     groups are rescored exactly in f32 (engine/group_rescore.py, CUDA on
+     the card), deduplicated to k distinct neighbours, and un-permuted.
 
 bf16 and int8 screens round or quantize round 1 only; the selection
 margin absorbs that, and round 2 re-ranks in f32 from the f32 table.  In
@@ -45,8 +45,10 @@ its exact rescore) and `collect` (waiting for and unpacking results).
 `probe` and `unions` also add their host seconds to the counters
 `probe.host_s` and `unions.host_s`, the counter `screen.pairs` sums the
 (query, row) pairs K1 screens, `select.pairs` the (query, group)
-minima the selection reads, and `rescore.steps` the round-2 steps
-launched (one per `_round2_sub` slice of a block's queries).
+minima the selection reads; engine/group_rescore.py counts
+`rescore.steps`, the round-2 launches (one a block on the card; on the CPU
+one a `_round2_sub` slice of a block's queries), and `rescore.rows`, the
+candidate rows they are asked to score.
 """
 
 from __future__ import annotations
@@ -59,6 +61,7 @@ from .. import true_fp32
 from ..ops.distance import l2_to_centroids
 from ..ops.topk import top_k
 from ..profiling import count, span
+from .group_rescore import exact_group_rescore
 from .group_select import masked_group_topk
 from .screen import S_TILES, screen_norms, union_groupmin
 
@@ -69,8 +72,6 @@ _BIG = 3e38
 # it the union is sliced too (running top-kg merge).  Sized for an 80 GB
 # card beside a 1.5× corpus table and the selection's temporaries.
 _GMIN_BUDGET = 8 << 30
-# device bytes of the round-2 gather (sub, kg, sel_rows, d) f32 per step
-_R2_BUDGET = 1 << 30
 # set by _screen_rescore: the chunking plan it chose — tests assert the path
 _LAST_CHUNK_PLAN: dict | None = None
 
@@ -228,7 +229,6 @@ def _screen_rescore(
     kg: int,
     fetch_k: int,
     qb: int,
-    sub: int,
     sel_rows: int = 128,
     dim_scale: torch.Tensor | None = None,  # (d,) f32 per-dim int8 corpus scale
     screen_sq: torch.Tensor | None = None,  # (n_rows,) f32 K1 row norms (L2)
@@ -242,9 +242,9 @@ def _screen_rescore(
     and global group ids (−inf / −1 past the selection) take the place of
     neg and ids.  int8: see `screen_queries`.  Capacity mode
     (the rescore table is the bf16/int8 screen table): round 2 widens the
-    gathered rows to f32, and for int8 folds the per-dim scale into the
-    query, x·q = Σ_d s_d·x8_d·q_d = x8·(q·s), so the gather moves the
-    table's own bytes."""
+    table's rows to f32 as it reads them, and for int8 folds the per-dim
+    scale into the query, x·q = Σ_d s_d·x8_d·q_d = x8·(q·s), so it reads
+    the table's own bytes."""
     d = q_perm.shape[1]
     n_blocks, U = supers.shape
     dev = q_perm.device
@@ -286,7 +286,9 @@ def _screen_rescore(
         return vals, ggrp
 
     def rescore(q_b, vals, ggrp):
-        """Exact f32 rescore of the selected groups, `sub` queries a step."""
+        """Exact f32 rescore of the selected groups (group_rescore.py: one
+        kernel launch on the card, `_round2_sub` queries a step on the
+        CPU)."""
         if screen_only:
             v, g = vals[:, :k_loc], ggrp[:, :k_loc]
             if k_loc > v.shape[1]:
@@ -294,24 +296,8 @@ def _screen_rescore(
                 v = F.pad(v, (0, pad), value=-torch.inf)
                 g = F.pad(g, (0, pad), value=-1)
             return v, g
-        valid = vals > -(_BIG / 2)
-        count("rescore.steps", -(-q_b.shape[0] // sub))
-        negs, oids = [], []
-        for s in range(0, q_b.shape[0], sub):
-            qs, sg, val = q_b[s : s + sub], ggrp[s : s + sub], valid[s : s + sub]
-            n = qs.shape[0]
-            vec = groups_r2[sg].float().view(n, kg_eff * sel_rows, d_r2)  # group gather
-            dot = torch.bmm(vec, qs[:, :, None]).view(n, kg_eff, sel_rows)
-            sq = bsq_g[sg]
-            score = sq - dot if metric == "inner_product" else sq - 2.0 * dot
-            ids = ids_g[sg]
-            score = score + torch.where(val, 0.0, _BIG)[:, :, None]
-            score = torch.where(ids >= 0, score, _BIG)
-            neg, pos = top_k(-score.view(n, kg_eff * sel_rows), k_loc)
-            oid = torch.gather(ids.view(n, kg_eff * sel_rows), 1, pos)
-            negs.append(neg)
-            oids.append(torch.where(neg > -(_BIG / 2), oid, -1))
-        return torch.cat(negs), torch.cat(oids)
+        return exact_group_rescore(q_b, vals, ggrp, groups_r2, bsq_g, ids_g, metric=metric,
+                                   k_loc=k_loc)
 
     u_chunk = max(1, (_GMIN_BUDGET // 2) // max(SG * qb * 4, 1))
     global _LAST_CHUNK_PLAN
@@ -365,7 +351,7 @@ def _screen_rescore(
 @torch.no_grad()
 def _scan_all(q_pad, probed, perm, supers, tb, ulen, corpus_flat, bsq, corpus_flat_f32,
               tiles_ids, tile_pad_count, *, metric: str, kg: int, fetch_k: int, k: int,
-              qb: int, sub: int, sel_rows: int = 128, dim_scale=None, screen_sq=None,
+              qb: int, sel_rows: int = 128, dim_scale=None, screen_sq=None,
               screen_only: bool = False):
     """(scores (B_pad, k), ids (B_pad, k)) in caller order, deduplicated to
     k distinct neighbours (`screen_only`: group minima and group ids, see
@@ -376,8 +362,7 @@ def _scan_all(q_pad, probed, perm, supers, tb, ulen, corpus_flat, bsq, corpus_fl
     neg, ids, k_loc = _screen_rescore(
         q_perm, probed_p, supers, tb, ulen, corpus_flat, bsq, corpus_flat_f32,
         tiles_ids, tile_pad_count, metric=metric, kg=kg, fetch_k=fetch_k, qb=qb,
-        sub=sub, sel_rows=sel_rows, dim_scale=dim_scale, screen_sq=screen_sq,
-        screen_only=screen_only,
+        sel_rows=sel_rows, dim_scale=dim_scale, screen_sq=screen_sq, screen_only=screen_only,
     )
     ids, neg = _dedup_topk_dev(ids, neg, k)
     out_scores = torch.empty_like(neg)
@@ -443,11 +428,12 @@ class BlockScanState:
 
         dev = resolve_device(device)
         if dev.type == "cuda":
-            # the serving path's two kernels, K1 and the masked selection:
-            # their nvcc runs in parallel, here rather than at first launch
+            # the serving path's kernels, K1, the masked selection and the
+            # rescore: their nvcc runs in parallel, here rather than at
+            # first launch
             from ..kernels import build
 
-            build(["union_groupmin", "group_select"])
+            build(["union_groupmin", "group_select", "group_rescore"])
         self = cls.__new__(cls)
         x_d = np.asarray(x_d)
         n, d = x_d.shape
@@ -638,14 +624,6 @@ def _resolve_margin(margin, scan_dtype, sel_rows: int) -> int:
     return margin
 
 
-def _round2_sub(kg: int, sel_rows: int, d: int, qb: int) -> int:
-    """Queries per round-2 step: the gather stages (sub, kg, sel_rows, d)
-    f32, bounded by _R2_BUDGET; a power of two, at most qb."""
-    budget = _R2_BUDGET // max(kg * sel_rows * d * 4, 1)
-    sub = 1 << max(0, int(budget).bit_length() - 1)
-    return max(1, min(sub, qb))
-
-
 def _to_host_async(tensors):
     """Start device→host copies of `tensors`; returns a handle for _wait."""
     if tensors[0].device.type != "cuda":
@@ -747,12 +725,11 @@ def _dispatch_scan(state, engine, h, union, fetch_k, k, kg, sel_rows, wire):
     count("screen.pairs", h["qb"] * int(ulen.sum()) * S_TILES * 128)
     count("select.pairs", h["qb"] * int(ulen.sum()) * S_TILES * (128 // sel_rows))
     with span("scan"):
-        sub = _round2_sub(kg, sel_rows, h["q"].shape[1], h["qb"])
         scores, ids = _scan_all(
             h["q"], h["probed"], h["perm"], supers_d, tb_d, ulen_d,
             state.corpus_flat, state.bsq, state.corpus_flat_f32, state.tiles_ids,
             state.tile_pad_count, metric=engine.metric, kg=kg, fetch_k=fetch_k, k=k,
-            qb=h["qb"], sub=sub, sel_rows=sel_rows, dim_scale=state.dim_scale,
+            qb=h["qb"], sel_rows=sel_rows, dim_scale=state.dim_scale,
             screen_sq=state.screen_sq,
         )
         return _to_host_async([_wire(scores, wire), ids])

@@ -47,7 +47,6 @@ from ..engine.block_scan import (
     _pow2ceil,
     _probe_batch,
     _resolve_margin,
-    _round2_sub,
     _screen_rescore,
     _to_host_async,
     _wait,
@@ -350,8 +349,7 @@ class ShardedQueryEngine:
                 torch.as_tensor(tb, device=dev), torch.as_tensor(ulen, device=dev),
                 st.corpus_flat, st.bsq, st.corpus_flat_f32, st.tiles_ids,
                 st.tile_pad_count, metric=self.metric, kg=kg, fetch_k=fetch_k, qb=qb,
-                sub=_round2_sub(kg, self.sel_rows, d, qb), sel_rows=self.sel_rows,
-                dim_scale=st.dim_scale, screen_sq=st.screen_sq,
+                sel_rows=self.sel_rows, dim_scale=st.dim_scale, screen_sq=st.screen_sq,
             )
         else:
             sel, tb, chunk = self._block_unions(union)
@@ -457,10 +455,11 @@ def serve_rank(x_d, layout, centroids, scaler, params, requests, *, mesh: Mesh,
 
     Returns {"results": the answers in order (the same on every rank),
     "build_s": engine build seconds, "ranks": one dict per rank, in rank
-    order: its device, its K1 and masked-selection launches while
+    order: its device, its K1, masked-selection and rescore launches while
     answering, and (on the card) its peak device memory}."""
     import torch.distributed as dist
 
+    from ..engine.group_rescore import exact_group_rescore
     from ..engine.group_select import masked_group_topk
     from ..engine.screen import union_groupmin
 
@@ -471,6 +470,7 @@ def serve_rank(x_d, layout, centroids, scaler, params, requests, *, mesh: Mesh,
     engine = ShardedQueryEngine(x_d, layout, centroids, scaler, params, mesh, **engine_kw)
     build_s = time.perf_counter() - t0
     k1_before, select_before = union_groupmin.launches, masked_group_topk.launches
+    rescore_before = exact_group_rescore.launches
     results = []
     for name, args, kwargs in requests:
         if name not in _REQUESTS:
@@ -480,6 +480,7 @@ def serve_rank(x_d, layout, centroids, scaler, params, requests, *, mesh: Mesh,
         "rank": mesh.rank, "device": str(dev), "local_impl": engine.local_impl,
         "k1_launches": union_groupmin.launches - k1_before,
         "select_launches": masked_group_topk.launches - select_before,
+        "rescore_launches": exact_group_rescore.launches - rescore_before,
         "peak_bytes": torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else None,
     }
     ranks = [None] * mesh.size

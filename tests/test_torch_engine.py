@@ -339,12 +339,12 @@ def test_screen_only_matches_lira_tpu(index):
     sel_rows = e_t.block_sel_rows
     fetch_k = K * index["n_mul"]
     kg = fetch_k + tbs._resolve_margin(None, st_t.scan_dtype, sel_rows)
-    common = dict(metric="L2", kg=kg, fetch_k=fetch_k, k=K, sel_rows=sel_rows, sub=8)
+    common = dict(metric="L2", kg=kg, fetch_k=fetch_k, k=K, sel_rows=sel_rows)
     sc_j, id_j = jbs._scan_all(
         h_j["q"], h_j["probed"], h_j["perm"], jnp.asarray(supers), jnp.asarray(tb),
         jnp.asarray(ulen), st_j.corpus_flat, st_j.bsq, st_j.rescore_arg, st_j.tiles_ids,
         st_j.tile_pad_count, qb=h_j["qb"], precision="highest", interpret=True,
-        screen_only=True, dim_scale=st_j.dim_scale, **common)
+        screen_only=True, dim_scale=st_j.dim_scale, sub=8, **common)
     import torch
 
     sc_t, id_t = tbs._scan_all(
@@ -411,7 +411,7 @@ def test_blocked_spans_nest_under_their_root(index, tmp_path, root):
         if e["name"] in ("select", "rescore"):
             assert any(_inside(e, s) for s in scans)
     assert set(profiling.counters()) == {"screen.pairs", "select.pairs", "probe.host_s",
-                                         "unions.host_s", "rescore.steps"}
+                                         "unions.host_s", "rescore.steps", "rescore.rows"}
     assert all(v > 0 for v in profiling.counters().values())
     # at d 16 one round-2 step holds a whole block: a step a `rescore` span
     assert profiling.counters()["rescore.steps"] == sum(e["name"] == "rescore" for e in evs)

@@ -3,8 +3,9 @@ blocked engine in int8, bf16 and f32 against the benchmark's plain
 reference (`annbench/reference/ann.py`, f64) within the
 `gist1m.stream-int8` cell's check limits; `build_index` with the learned
 redundancy (`duplicate_type "model"`, ratio 0.03) against a plain
-recomputation of its rule from `infer`'s scores; and the round-2 rescore's
-steps (`_round2_sub`) within `_R2_BUDGET`, counted by `rescore.steps`."""
+recomputation of its rule from `infer`'s scores; and the plain round-2
+rescore's steps (`group_rescore._round2_sub`) within its `_R2_BUDGET`,
+counted by `rescore.steps` on the CPU (the card launches one a block)."""
 
 from __future__ import annotations
 
@@ -18,7 +19,7 @@ import torch
 from annbench.core import check
 from annbench.data.hard_regime import HardRegime
 from lira_tpu_torch import profiling
-from lira_tpu_torch.engine import block_scan
+from lira_tpu_torch.engine import block_scan, group_rescore
 from lira_tpu_torch.engine.serve import QueryEngine
 from lira_tpu_torch.labels.scaler import scaled_centroid_distances
 from lira_tpu_torch.models.train import infer, make_train_state, predict_counts
@@ -140,12 +141,12 @@ def test_learned_redundancy_layout(built_with_redundancy):
 @pytest.mark.parametrize("kg,sel_rows,qb", [(52, 32, 1024), (42, 32, 1024), (26, 16, 1024),
                                             (52, 32, 64), (18, 64, 256), (4096, 128, 1024)])
 def test_round2_steps_fit_the_budget(kg, sel_rows, qb):
-    sub = block_scan._round2_sub(kg, sel_rows, D, qb)
+    sub = group_rescore._round2_sub(kg, sel_rows, D, qb)
     assert sub & (sub - 1) == 0 and 1 <= sub <= qb
     staged = kg * sel_rows * D * 4
-    assert sub * staged <= block_scan._R2_BUDGET or sub == 1
+    assert sub * staged <= group_rescore._R2_BUDGET or sub == 1
     # the largest power of two that fits (or the whole block)
-    assert sub == qb or 2 * sub * staged > block_scan._R2_BUDGET
+    assert sub == qb or 2 * sub * staged > group_rescore._R2_BUDGET
 
 
 @pytest.mark.parametrize("steps_a_block", [1, 4])
@@ -154,9 +155,9 @@ def test_rescore_steps_counts_the_round2_steps(index, monkeypatch, steps_a_block
     q = index["x_q"][:200]  # 4 blocks of 64 (the last one part padding)
     kg = K * N_MUL + block_scan._resolve_margin(None, torch.int8, eng.block_sel_rows)
     # a budget that stages 64 / steps_a_block queries a step
-    monkeypatch.setattr(block_scan, "_R2_BUDGET",
+    monkeypatch.setattr(group_rescore, "_R2_BUDGET",
                         kg * eng.block_sel_rows * D * 4 * 64 // steps_a_block)
-    assert block_scan._round2_sub(kg, eng.block_sel_rows, D, 64) == 64 // steps_a_block
+    assert group_rescore._round2_sub(kg, eng.block_sel_rows, D, 64) == 64 // steps_a_block
     profiling.reset_counters()
     eng.search(q, index["thr"], K)  # no profiler records: nothing counted
     assert "rescore.steps" not in profiling.counters()

@@ -1,7 +1,8 @@
 """Tests that need the card (marker `gpu`): K1, K2 and K3 (with its list
-inversion and merge) built with nvcc and held against their plain
-versions, and the CUDA engines (blocked and per-query) and the fused kNN
-against the CPU port.
+inversion and merge), the blocked engine's masked group selection and its
+exact rescore built with nvcc and held against their plain versions, and
+the CUDA engines (blocked and per-query) and the fused kNN against the CPU
+port.
 They skip without a CUDA device; on an H100 run
 
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
@@ -15,6 +16,9 @@ scores are exact.  K2 the same for f32 and bf16-rounded inputs; its int8
 minima are exact (both round the integer dot to f32 and apply the same
 two f32 operations).  K3 the same bound on its scores, with equal id sets
 (its inputs have no ties but replicated rows, whose ids are equal too).  The
+rescore bit for bit on integer-valued blocks (every sum exact, scores tied
+often), and on Gaussian ones within the K1 bound, its ids equal but at
+near-ties.  The
 engines must agree on nprobe, ndis and
 neighbour sets exactly; the fused kNN on ids, except between candidates
 whose f64 distances tie to rtol 1e-6.
@@ -160,11 +164,123 @@ def test_group_select_kernel_at_the_cells_shapes(cuda, n_g, qb, live, kg, n_bkt,
     _check_select(gmin, tb, probed, live, 1, kg)
 
 
+def _rescore_block(dev, qb, kg, sel_rows, d, dtype, metric, seed, ints, p_dead=0.1):
+    """One block's rescore inputs as the engine hands them over: a table
+    (8·kg groups, at least 256) with replicated groups (equal scores) and
+    −1 ids, each query's kg distinct groups drawn near its own place in the
+    table (neighbouring queries share groups, as in a tour-grouped block),
+    slots invalid at rate p_dead and all but one of query 0's.  `ints`:
+    small integers, whose every f32 sum is exact in any order."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    n_groups = max(8 * kg, 256)
+    shape = (n_groups, sel_rows, d)
+    if ints:
+        x = torch.randint(-2, 3, shape, generator=g, device=dev).float()
+        q = torch.randint(-3, 4, (qb, d), generator=g, device=dev).float()
+    else:
+        x = torch.randn(shape, generator=g, device=dev)
+        q = torch.randn((qb, d), generator=g, device=dev)
+    x[1::7] = x[0]
+    if dtype == torch.int8 and not ints:
+        x = torch.round(x * 30).clamp(-127, 127)
+    table = x.to(dtype)
+    ids = torch.randperm(n_groups * sel_rows, generator=g, device=dev).int().view(n_groups,
+                                                                                   sel_rows)
+    ids[torch.rand(ids.shape, generator=g, device=dev) < 0.05] = -1
+    x = table.float()
+    sq = (x * x).sum(-1) if metric == "L2" else torch.zeros(ids.shape, device=dev)
+    bsq = torch.where(ids >= 0, sq, 3e38)
+    home = torch.arange(qb, device=dev)[:, None] * (n_groups - 4 * kg) // qb
+    near = torch.argsort(torch.rand((qb, 4 * kg), generator=g, device=dev), dim=1)[:, :kg]
+    ggrp = (home + near).contiguous()
+    vals = -torch.rand((qb, kg), generator=g, device=dev) * 100
+    vals[torch.rand((qb, kg), generator=g, device=dev) < p_dead] = -torch.inf
+    vals[0, 1:] = -2e38
+    return q, vals, ggrp, table, bsq, ids
+
+
+def _check_rescore(args, metric, k_loc, exact):
+    """The rescore kernel against its plain version: bit for bit on exact
+    sums; else scores within the K1 bound (the same products summed in
+    another f32 order) and ids equal except at slots whose plain scores lie
+    within twice that of a neighbour's or at the list's cut (near-ties the
+    two orders may rank apart)."""
+    from lira_tpu_torch.engine.group_rescore import (_round2_sub, exact_group_rescore,
+                                                     exact_group_rescore_ref)
+
+    q, vals, ggrp, table = args[:4]
+    before = exact_group_rescore.launches
+    neg, ids = exact_group_rescore(*args, metric=metric, k_loc=k_loc)
+    torch.cuda.synchronize()
+    assert exact_group_rescore.launches == before + 1
+    sub = _round2_sub(ggrp.shape[1], table.shape[1], table.shape[2], q.shape[0])
+    neg_r, ids_r = exact_group_rescore_ref(*args, metric=metric, k_loc=k_loc, sub=sub)
+    if exact:
+        assert torch.equal(neg.view(torch.int32), neg_r.view(torch.int32))
+        assert torch.equal(ids, ids_r)
+        return
+    x = table.float()
+    xn = float((x * x).sum(-1).max())
+    tol = 2 * table.shape[2] * EPS32 * (xn + 2 * (xn * (q * q).sum(1, keepdim=True)).sqrt())
+    assert bool(((neg - neg_r).abs() <= tol).all())
+    near = torch.zeros_like(ids, dtype=torch.bool)
+    gap = (neg_r[:, 1:] - neg_r[:, :-1]).abs() <= 2 * tol
+    near[:, 1:] |= gap
+    near[:, :-1] |= gap
+    near[:, -1] = True
+    assert not bool(((ids != ids_r) & ~near).any())
+
+
+# on exact sums, every shape the engine passes: one candidate row; the 1M
+# cell's block (kg 42, k 10) and GIST's (d 960, kg 52, k 20); every
+# candidate kept; rows of 400 / 200 / 100 bytes (read an element at a time);
+# 16K live rows a query (k 100 at n_mul 2: the buffer reduced in passes);
+# the margin calibration's exhaustive kg (most slots invalid, skipped); the
+# largest k_loc of the least buffer (4,096 keys); k_loc above it (buffers
+# of 8,192 and 16,384 keys)
+@pytest.mark.parametrize("d,sel_rows,kg,qb,k_loc,p_dead", [
+    (37, 1, 1, 8, 1, 0.1), (128, 32, 42, 200, 10, 0.1), (960, 32, 52, 64, 20, 0.1),
+    (960, 128, 3, 64, 384, 0.1), (100, 8, 52, 64, 20, 0.1), (128, 32, 512, 64, 200, 0.0),
+    (128, 32, 1024, 16, 20, 0.97), (128, 4, 300, 32, 1024, 0.0),
+    (128, 8, 300, 16, 2000, 0.0), (960, 32, 160, 8, 4096, 0.0)])
+@pytest.mark.parametrize("metric", ["L2", "inner_product"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
+def test_group_rescore_kernel_matches_plain_exactly(cuda, dtype, metric, d, sel_rows, kg, qb,
+                                                   k_loc, p_dead):
+    args = _rescore_block(cuda, qb, kg, sel_rows, d, dtype, metric, d + kg, True, p_dead)
+    _check_rescore(args, metric, k_loc, exact=True)
+
+
+def test_group_rescore_refuses_a_list_above_shared_memory(cuda):
+    """k_loc 8,192 needs a buffer of 32,768 keys (256 KB), more than a CTA's
+    shared memory: the wrapper raises before any launch."""
+    from lira_tpu_torch.engine.group_rescore import exact_group_rescore
+
+    args = _rescore_block(cuda, 4, 300, 32, 128, torch.float32, "L2", 3, True)
+    before = exact_group_rescore.launches
+    with pytest.raises(ValueError, match="shared memory"):
+        exact_group_rescore(*args, metric="L2", k_loc=8192)
+    assert exact_group_rescore.launches == before
+
+
+# the cells' blocks on Gaussian rows (1,024 queries: 1M kg 42 k 10, 10M kg
+# 52 k 20, GIST d 960, k 100 at n_mul 2), the table in f32 and in capacity
+# mode's bf16 and int8
+@pytest.mark.parametrize("d,kg,k_loc,metric", [(128, 42, 10, "L2"), (128, 52, 20, "L2"),
+                                               (960, 52, 20, "L2"), (128, 232, 200, "L2"),
+                                               (128, 42, 10, "inner_product")])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
+def test_group_rescore_kernel_at_the_cells_shapes(cuda, dtype, d, kg, k_loc, metric):
+    args = _rescore_block(cuda, 1024, kg, 32, d, dtype, metric, 7, False)
+    _check_rescore(args, metric, k_loc, exact=False)
+
+
 # d = 37: the int8 table is zero-padded to 40 columns; sel_rows 1 and 8:
 # groups below a wgmma quad's 8 columns and below the FMA tile's 16 lanes
 @pytest.mark.parametrize("dim,sel_rows", [(32, None), (37, None), (32, 8), (32, 1)])
 @pytest.mark.parametrize("scan_dtype", ["float32", "bfloat16", "int8"])
 def test_cuda_engine_matches_cpu_engine(cuda, scan_dtype, dim, sel_rows):
+    from lira_tpu_torch.engine.group_rescore import exact_group_rescore
     from lira_tpu_torch.engine.group_select import masked_group_topk
     from lira_tpu_torch.engine.serve import QueryEngine
     from lira_tpu_torch.labels.scaler import scaled_centroid_distances
@@ -187,8 +303,10 @@ def test_cuda_engine_matches_cpu_engine(cuda, scan_dtype, dim, sel_rows):
         j += 1
     thr = float((v[j] + v[j + 1]) / 2)
     select_before = masked_group_topk.launches
+    rescore_before = exact_group_rescore.launches
     r_c, r_g = e_cpu.search(xq, thr, 10), e_gpu.search(xq, thr, 10)
     assert masked_group_topk.launches > select_before  # the card's selection is the kernel
+    assert exact_group_rescore.launches > rescore_before  # and so is its rescore
     np.testing.assert_array_equal(r_c.nprobe, r_g.nprobe)
     np.testing.assert_array_equal(r_c.ndis, r_g.ndis)
     for i in range(len(xq)):
@@ -479,7 +597,8 @@ def test_sharded_engine_on_the_card_matches_single_chip(cuda):
         r1 = single.search(xq, thr, 10)
         r2, r_s = out["results"]
         assert all(r["local_impl"] == "pallas" and r["k1_launches"] > 0
-                   and r["select_launches"] > 0 and r["device"] == "cuda:0"
+                   and r["select_launches"] > 0 and r["rescore_launches"] > 0
+                   and r["device"] == "cuda:0"
                    for r in out["ranks"]), kw
         np.testing.assert_array_equal(r1.nprobe, r2.nprobe)
         np.testing.assert_array_equal(r1.ndis, r2.ndis)
